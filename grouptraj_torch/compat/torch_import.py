@@ -6,7 +6,8 @@ layouts (``encoder.encoder.weight_ih_l0``, ``pool_net.mlp_pre_pool.2.weight``,
 ...), so a zoo ``g_state`` loads directly. :func:`params_from_jax` is the
 bridge from a JAX generator parameter tree (``[in, out]`` weights, gate
 order i,f,g,o) to that state dict — the port's own copy of the
-``export_state_dicts`` mapping for the ``gat`` preset.
+``export_state_dicts`` mapping for the ``gat`` preset — and takes the
+discriminator's tree as well.
 """
 
 from __future__ import annotations
@@ -104,19 +105,24 @@ def generator_state(g_state: Mapping) -> Dict[str, torch.Tensor]:
             if not (has_gat and k.startswith("gcn_module."))}
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """JAX generator params (numpy leaves, ``jax.device_get(params)``) ->
-    the torch-named state dict of the port's ``gat`` generator. Keys and
-    layouts equal ``grouptraj.compat.export_state_dicts(tree, 'generator')``
-    for that preset."""
+def discriminator_state(d_state: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference or grouptraj ``d_state`` as tensors the port's
+    discriminator loads (same names and layouts; arrays become tensors)."""
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.tensor(np.asarray(v)) for k, v in d_state.items()}
+
+
+def params_from_jax(tree: Mapping, kind: str = "generator"
+                    ) -> Dict[str, np.ndarray]:
+    """JAX params (numpy leaves, ``jax.device_get(params)``) of the
+    generator or (``kind='discriminator'``) the discriminator -> the
+    torch-named state dict of the port's ``gat``-preset module. Keys and
+    layouts equal ``grouptraj.compat.export_state_dicts(tree, kind)`` for
+    that preset. A JAX ``TrainState``'s ``g_params``/``d_params`` thus
+    become the port's G and D; optimizer moments are not carried (both
+    sides start Adam from zero) — bridging a non-zero optimizer state
+    waits for the port's checkpoint save."""
     out: Dict[str, np.ndarray] = {}
-    extra = set(tree) - {"encoder", "decoder", "pool_net", "gatencoder"}
-    if (extra or "pool_net" in tree["decoder"]
-            or "gat_net" in tree.get("gatencoder", {})
-            or "mlp_pre_pool" not in tree.get("pool_net", {})):
-        raise NotImplementedError(
-            "params_from_jax covers the 'gat' preset; the other presets "
-            "arrive with a later slice of the port")
 
     def lin(prefix, p):
         out[prefix + ".weight"] = np.asarray(p["w"]).T
@@ -128,6 +134,17 @@ def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
         out[prefix + ".bias_ih_l0"] = np.asarray(p["b_ih"])
         out[prefix + ".bias_hh_l0"] = np.asarray(p["b_hh"])
 
+    def mlp(prefix, p):
+        for idx, layer in enumerate(p["layers"]):
+            if "bn_scale" in layer:
+                raise NotImplementedError("batch_norm is not ported yet")
+            # make_mlp layout: Linear, activation -> Linear indices 0, 2, ...
+            lin(f"{prefix}.{2 * idx}", layer["linear"])
+
+    def pool_net(prefix, pn):
+        lin(f"{prefix}.spatial_embedding", pn["spatial_embedding"])
+        mlp(f"{prefix}.mlp_pre_pool", pn["mlp_pre_pool"])
+
     def gat(prefix, p):
         for i, att in enumerate(p["attentions"]):
             out[f"{prefix}.attention_{i}.W"] = np.asarray(att["W"])
@@ -135,18 +152,32 @@ def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
         out[f"{prefix}.out_att.W"] = np.asarray(p["out_att"]["W"])
         out[f"{prefix}.out_att.a"] = np.asarray(p["out_att"]["a"])
 
+    later = NotImplementedError(
+        "params_from_jax covers the 'gat' preset with the 'global' "
+        "discriminator; the other presets are not ported yet")
+    if kind == "discriminator":
+        if (set(tree) != {"encoder", "real_classifier", "pool_net"}
+                or "mlp_pre_pool" not in tree["pool_net"]):
+            raise later
+        lin("encoder.spatial_embedding", tree["encoder"]["spatial_embedding"])
+        lstm("encoder.encoder", tree["encoder"]["lstm"])
+        mlp("real_classifier", tree["real_classifier"])
+        pool_net("pool_net", tree["pool_net"])
+        return out
+    if kind != "generator":
+        raise ValueError(f"kind must be 'generator' or 'discriminator', "
+                         f"got {kind!r}")
+    extra = set(tree) - {"encoder", "decoder", "pool_net", "gatencoder"}
+    if (extra or "pool_net" in tree["decoder"]
+            or "gat_net" in tree.get("gatencoder", {})
+            or "mlp_pre_pool" not in tree.get("pool_net", {})):
+        raise later
     lin("encoder.spatial_embedding", tree["encoder"]["spatial_embedding"])
     lstm("encoder.encoder", tree["encoder"]["lstm"])
     lin("decoder.spatial_embedding", tree["decoder"]["spatial_embedding"])
     lstm("decoder.decoder", tree["decoder"]["lstm"])
     lin("decoder.hidden2pos", tree["decoder"]["hidden2pos"])
-    pn = tree["pool_net"]
-    lin("pool_net.spatial_embedding", pn["spatial_embedding"])
-    for idx, layer in enumerate(pn["mlp_pre_pool"]["layers"]):
-        if "bn_scale" in layer:
-            raise NotImplementedError("batch_norm arrives with a later slice")
-        # make_mlp layout: Linear, activation -> Linear indices 0, 2, ...
-        lin(f"pool_net.mlp_pre_pool.{2 * idx}", layer["linear"])
+    pool_net("pool_net", tree["pool_net"])
     ge = tree["gatencoder"]
     gat("gatencoder.gat_intra", ge["gat_intra"])
     gat("gatencoder.gat_inter", ge["gat_inter"])

@@ -163,8 +163,8 @@ class TrainConfig:
     # (evaluate_model --use_ema evaluates it).
     g_ema_decay: float = 0.0
     # grouptraj extensions of the training step (sparse best-of-k backward,
-    # bf16 no-grad forwards); semantics in grouptraj/config.py. The port's
-    # training slice has not landed, so these are carried for config parity.
+    # bf16 no-grad forwards); semantics in grouptraj/config.py, honoured by
+    # the port's training step (train/steps.py).
     sparse_best_k: bool = True
     bf16_nograd: bool = True
 

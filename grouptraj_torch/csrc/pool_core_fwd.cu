@@ -22,41 +22,18 @@
 // operations, and nothing of the [S, N, N, K] pair tensor ever reaches
 // device memory.
 //
-// Design, right and simple first (no tensor cores yet):
-// - one block of 4 warps per (replica*scene, 16-row i-tile, 8-column
-//   b-chunk); each warp owns 4 rows i, each lane one column j of a 32-wide
-//   j-chunk, so a thread holds a 4x8 accumulator tile;
-// - the block stages its W2 chunk (K x 8, upcast from bf16 if need be) and
-//   each a-chunk (32 x K, rows padded by 4 floats so 16-byte loads are free
-//   of bank conflicts) in shared memory; u rows are warp-uniform and come
-//   through the read-only cache as broadcasts;
-// - per thread, a running (max, count) over its j; lanes then merge by
-//   shuffles: m = max(m1, m2), c = [m1 == m] c1 + [m2 == m] c2. Every pair
-//   sums over k in the same order wherever its j lands, so duplicate rows
-//   tie exactly.
+// Design, right and simple first (no tensor cores yet): the tile layout,
+// staging and inner product of pool_core.cuh, shared with the backward so
+// that both compute bit-equal pair values. Per thread, a running
+// (max, count) over its j; lanes then merge by shuffles:
+// m = max(m1, m2), c = [m1 == m] c1 + [m2 == m] c2. Every pair sums over k
+// in the same order wherever its j lands, so duplicate rows tie exactly.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pool_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kRowsPerWarp * kWarps;  // i-tile
-constexpr int kJ = 32;                                 // j-chunk (one per lane)
-constexpr int kBC = 8;                                 // b-chunk
-constexpr int kPad = 4;                                // a-row padding (floats)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-size_t smem_bytes(int N, int K) {
-  return sizeof(float) * ((size_t)kJ * (K + kPad) + (size_t)K * kBC + N);
-}
+using namespace pool_core;
 
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
@@ -66,9 +43,7 @@ pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
                      float* __restrict__ pooled, float* __restrict__ cnt,
                      int S, int N, int K, int B) {
   extern __shared__ float4 smem4[];
-  float* sa = reinterpret_cast<float*>(smem4);  // [kJ][K + kPad]
-  float* sw = sa + kJ * (K + kPad);             // [K][kBC]
-  float* sv = sw + K * kBC;                     // [N] valid flags
+  const Smem sm = carve(reinterpret_cast<float*>(smem4), K);
   __shared__ int s_n;
   __shared__ float s_b[kBC];
 
@@ -80,15 +55,7 @@ pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row0 = (size_t)g * N;
 
-  if (tid == 0) s_n = 0;
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
-    const float v = valid[row0 + j];
-    sv[j] = v;
-    if (v > 0.f) atomicMax(&s_n, j + 1);
-  }
-  __syncthreads();
-  const int n = s_n;
+  const int n = scene_extent(valid + row0, sm.sv, &s_n, N);
 
   if (i_tile >= n) {  // the whole tile lies past the scene's extent
     const int rows = min(kRowsPerBlock, N - i_tile);
@@ -100,19 +67,11 @@ pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
     return;
   }
 
-  const W* wr = w2 + (size_t)r * K * B;
-  for (int t = tid; t < K * kBC; t += kThreads) {
-    const int k = t / kBC, c = t % kBC;
-    sw[t] = c < nb ? to_f32(wr[(size_t)k * B + b0 + c]) : 0.f;
-  }
-  if (tid < kBC) s_b[tid] = tid < nb ? to_f32(b2[(size_t)r * B + b0 + tid]) : 0.f;
+  stage_weights(sm.sw, s_b, w2, b2, r, K, B, b0, nb);
 
   const int i0 = i_tile + warp * kRowsPerWarp;
   const bool warp_active = i0 < n;
-  const float* urow[kRowsPerWarp];
-#pragma unroll
-  for (int ii = 0; ii < kRowsPerWarp; ++ii)  // clamp: rows >= N are never stored
-    urow[ii] = u + (row0 + min(i0 + ii, N - 1)) * K;
+  const Rows urow = warp_rows(u, row0, i0, N, K);
 
   float m[kRowsPerWarp][kBC], c[kRowsPerWarp][kBC];
 #pragma unroll
@@ -123,58 +82,23 @@ pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
       c[ii][b] = 0.f;
     }
 
-  const int k4 = K / 4;
-  const float4* sw4 = reinterpret_cast<const float4*>(sw);
   for (int jc = 0; jc < n; jc += kJ) {
     __syncthreads();  // the previous chunk is consumed (and sw/s_b staged)
-    const int rows = min(kJ, n - jc);
-    for (int t = tid; t < rows * k4; t += kThreads) {
-      const int jj = t / k4, kk = t % k4;
-      reinterpret_cast<float4*>(sa + jj * (K + kPad))[kk] =
-          reinterpret_cast<const float4*>(a + (row0 + jc + jj) * K)[kk];
-    }
+    stage_a(sm.sa, a + (row0 + jc) * K, min(kJ, n - jc), K);
     __syncthreads();
     const int j = jc + lane;
-    if (!warp_active || j >= n || !(sv[j] > 0.f)) continue;
+    if (!warp_active || j >= n || !(sm.sv[j] > 0.f)) continue;
 
-    float acc[kRowsPerWarp][kBC];
-#pragma unroll
-    for (int ii = 0; ii < kRowsPerWarp; ++ii)
-#pragma unroll
-      for (int b = 0; b < kBC; ++b) acc[ii][b] = 0.f;
-
-    const float4* aj = reinterpret_cast<const float4*>(sa + lane * (K + kPad));
-    for (int kq = 0; kq < k4; ++kq) {
-      const float4 av = aj[kq];
-      float w[4][kBC];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 lo = sw4[(4 * kq + kk) * 2];
-        const float4 hi = sw4[(4 * kq + kk) * 2 + 1];
-        w[kk][0] = lo.x; w[kk][1] = lo.y; w[kk][2] = lo.z; w[kk][3] = lo.w;
-        w[kk][4] = hi.x; w[kk][5] = hi.y; w[kk][6] = hi.z; w[kk][7] = hi.w;
-      }
-#pragma unroll
-      for (int ii = 0; ii < kRowsPerWarp; ++ii) {
-        const float4 uv = __ldg(reinterpret_cast<const float4*>(urow[ii]) + kq);
-        const float h[4] = {fmaxf(av.x - uv.x, 0.f), fmaxf(av.y - uv.y, 0.f),
-                            fmaxf(av.z - uv.z, 0.f), fmaxf(av.w - uv.w, 0.f)};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int b = 0; b < kBC; ++b)
-            acc[ii][b] = fmaf(h[kk], w[kk][b], acc[ii][b]);
-      }
-    }
+    float o[kRowsPerWarp][kBC];
+    pair_tile(o, sm.sa + lane * (K + kPad), sm.sw, s_b, urow, K);
 #pragma unroll
     for (int ii = 0; ii < kRowsPerWarp; ++ii)
 #pragma unroll
       for (int b = 0; b < kBC; ++b) {
-        const float o = fmaxf(acc[ii][b] + s_b[b], 0.f);
-        if (o > m[ii][b]) {
-          m[ii][b] = o;
+        if (o[ii][b] > m[ii][b]) {
+          m[ii][b] = o[ii][b];
           c[ii][b] = 1.f;
-        } else if (o == m[ii][b]) {
+        } else if (o[ii][b] == m[ii][b]) {
           c[ii][b] += 1.f;
         }
       }

@@ -1,5 +1,9 @@
-"""Models of the port (this slice: the ``gat`` generator, inference)."""
+"""Models of the port: the ``gat`` generator and the ``global``
+discriminator."""
 
+from grouptraj_torch.models.discriminator import (  # noqa: F401
+    TrajectoryDiscriminator,
+)
 from grouptraj_torch.models.generator import (  # noqa: F401
     TrajectoryGenerator, sample_noises,
 )

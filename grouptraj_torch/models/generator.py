@@ -1,16 +1,20 @@
 """TrajectoryGenerator: LSTM encoder → social pooling → group GAT → noise →
-folded LSTM decoder, scene-padded dense, inference only (counterpart of
+folded LSTM decoder, scene-padded dense (counterpart of
 ``grouptraj/models/generator.py``; reference ``sgan/models.py:715-927``).
 
 The module's parameters carry the reference's torch state-dict names and
 layouts, so a zoo ``g_state`` loads with ``load_state_dict``. The forward
 functions work on the JAX-shaped tree :meth:`TrajectoryGenerator.tree`
-returns (``[in, out]`` views of the same tensors) and upcast each weight to
-float32 where it is used, so weights may be held in bfloat16 while
-activations and positions stay float32.
+returns (``[in, out]`` views of the same tensors) and cast each weight to
+the activations' dtype where it is used. The context phase always runs in
+float32; the decoder runs in the dtype of the context it is handed, so a
+serving ``Predictor`` may hold bfloat16 weights under float32 activations
+and the training step's no-grad legs may decode entirely in bfloat16.
 
-This slice covers the ``gat`` preset: pool_net pooling, the GAT graph
-module, no per-step re-pooling. The other presets raise.
+Every function is differentiable (serving wraps its calls in
+``torch.inference_mode``, training does not). The ``gat`` preset is
+covered: pool_net pooling, the GAT graph module, no per-step re-pooling.
+The other presets raise.
 """
 
 from __future__ import annotations
@@ -145,6 +149,37 @@ class TrajectoryGenerator(nn.Module):
         ctx = torch.cat([final_h, pool_h], dim=-1)            # [S, N, He+B]
         return gat_encoder(p["gatencoder"], ctx, group_end, valid, cfg.alpha)
 
+    def generator_sample(self, noise_input: torch.Tensor,
+                         obs_rel: torch.Tensor, valid: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         user_noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """One sample: noise concat + decode -> pred_rel [S, N, Tp, 2] in
+        ``noise_input``'s dtype (× valid). ``user_noise`` ``[S, N, nd]``
+        replaces the internal draw."""
+        cfg = self.cfg
+        S, N = valid.shape
+        h = noise_input
+        if cfg.noise_first_dim:
+            z = user_noise
+            if z is None:
+                z = sample_noises(cfg, 1, S, N, generator,
+                                  noise_input.device)[0]
+            h = torch.cat([h, z.to(noise_input.dtype)], dim=-1)
+        return _decode_folded(self.decoder.tree(), cfg, h,
+                              obs_rel[:, :, -1, :], valid)
+
+    def generator_forward(self, obs: torch.Tensor, obs_rel: torch.Tensor,
+                          group_end: torch.Tensor, valid: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          user_noise: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """One stochastic forward pass -> pred_rel [S, N, Tp, 2]:
+        :meth:`generator_context` then :meth:`generator_sample`."""
+        ctx = self.generator_context(obs, obs_rel, group_end, valid)
+        return self.generator_sample(ctx, obs_rel, valid, generator,
+                                     user_noise)
+
     def generator_sample_many(self, noise_input: torch.Tensor,
                               obs_rel: torch.Tensor, valid: torch.Tensor,
                               num_samples: int,
@@ -214,22 +249,24 @@ def _decode_folded(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
         W_eff   = W_hh + W_p W_e W_ih
         b_eff   = (b_p W_e + b_e) W_ih + b_ih + b_hh
 
-    composed fresh on each call. Step 1 uses the observed last relative
+    composed fresh on each call (so autograd reaches the original
+    parameters), in ``h0``'s dtype. Step 1 uses the observed last relative
     displacement. Returns pred_rel [S, N, T, 2], zero at invalid peds."""
     S, N, H = h0.shape
     T = cfg.pred_len
-    w_e = dec["spatial_embedding"]["w"].float()
-    b_e = dec["spatial_embedding"]["b"].float()
-    w_p = dec["hidden2pos"]["w"].float()
-    b_p = dec["hidden2pos"]["b"].float()
+    dt = h0.dtype
+    w_e = dec["spatial_embedding"]["w"].to(dt)
+    b_e = dec["spatial_embedding"]["b"].to(dt)
+    w_p = dec["hidden2pos"]["w"].to(dt)
+    b_p = dec["hidden2pos"]["b"].to(dt)
     lstm = dec["lstm"]
-    w_ih, w_hh = lstm["w_ih"].float(), lstm["w_hh"].float()
+    w_ih, w_hh = lstm["w_ih"].to(dt), lstm["w_hh"].to(dt)
     w_r = w_e @ w_ih                                          # [2, 4H]
-    b_1 = b_e @ w_ih + lstm["b_ih"].float() + lstm["b_hh"].float()
+    b_1 = b_e @ w_ih + lstm["b_ih"].to(dt) + lstm["b_hh"].to(dt)
     w_eff = w_hh + w_p @ w_r                                  # [H, 4H]
     b_eff = b_p @ w_r + b_1
     h1, c1, rel1 = decoder_first_step(w_r, b_1, w_hh, w_p, b_p,
-                                      last_pos_rel.reshape(S * N, 2),
+                                      last_pos_rel.to(dt).reshape(S * N, 2),
                                       h0.reshape(S * N, H))
     rels = rel1[None]                                         # [1, S·N, 2]
     if T > 1:

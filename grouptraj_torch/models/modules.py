@@ -77,7 +77,7 @@ def gat_encoder(params: dict, x: torch.Tensor, labels: torch.Tensor,
                 valid: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """- x: [S, N, in_dim] per-ped context features
     - labels: [S, N] group label at t_obs; valid: [S, N]
-    Returns [S, N, final_dim], zero at invalid peds. Inference only."""
+    Returns [S, N, final_dim], zero at invalid peds."""
     intra = gat(params["gat_intra"], x, intra_group_adjacency(labels, valid),
                 alpha)
     r_raw, group_valid = group_membership(labels, valid)

@@ -1,3 +1,3 @@
 """Tensor ops of the port. Each module mirrors the JAX package's module of
-the same name; ``cuda_pool`` holds the hand-written CUDA pair core that
-replaces ``pallas_pool``."""
+the same name; ``cuda_pool`` holds the hand-written CUDA pair core
+(forward and backward) that replaces ``pallas_pool``."""

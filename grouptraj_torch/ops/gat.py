@@ -8,7 +8,8 @@ The attention logit ``leakyrelu(a · [Wh_i ‖ Wh_j])`` is computed as
 - ELU after each concatenated head; the out layer skips it and the
   module-level ELU applies instead;
 - the module ends in **log_softmax over the feature dim**.
-Inference only: dropout is inactive.
+Differentiable by plain autograd; attention dropout (``dropout1``) is not
+ported, so the training step refuses a config that sets it.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ def gat_layer(params: dict, x: torch.Tensor, adj_mask: torch.Tensor,
               alpha: float = 0.2, concat: bool = True) -> torch.Tensor:
     """x [S, N, F], adj_mask [S, N, N] bool -> [S, N, F']. Rows whose mask
     is empty softmax to uniform garbage and are masked by the caller."""
-    Wh = x @ params["W"].float()
+    Wh = x @ params["W"].to(x.dtype)
     F_out = Wh.shape[-1]
-    a = params["a"].float()
+    a = params["a"].to(x.dtype)
     e = F.leaky_relu((Wh @ a[:F_out, 0])[:, :, None]
                      + (Wh @ a[F_out:, 0])[:, None, :], negative_slope=alpha)
     e = e.masked_fill(~adj_mask, -9e15)

@@ -14,14 +14,20 @@ Implementations (``impl``), all computing the same function:
   ``max_j(relu(relu(a_j − u_i) @ W2 + b2))`` stays N²; the core runs as
   plain PyTorch (:func:`pool_core`);
 - ``kernel``: the same decomposition with the core in the hand-written
-  CUDA kernel (:mod:`grouptraj_torch.ops.cuda_pool`); on CPU tensors that
-  wrapper runs :func:`pool_core`;
+  CUDA kernels (:mod:`grouptraj_torch.ops.cuda_pool`, forward and
+  backward joined by its ``PoolCore`` autograd function); on CPU tensors
+  those wrappers run :func:`pool_core` and :func:`pool_core_bwd_plain`;
 - ``auto``: ``kernel`` for CUDA tensors, ``fast`` otherwise.
+
+All four are differentiable: ``pair`` and ``fast`` by autograd (``amax``
+splits a cotangent evenly among ties, as the kernels do), ``kernel`` by
+``PoolCore``. The per-pedestrian ``a``/``u`` are two plain matmuls outside
+any kernel, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +44,7 @@ def pool_hidden_net(params: dict, h: torch.Tensor, end_pos: torch.Tensor,
     """- h: [S, N, H] hidden states
     - end_pos: [S, N, 2] pooling anchor positions
     - valid: [S, N] {0,1}
-    Returns pool_h [S, N, bottleneck] (zeros at invalid i). Inference only.
+    Returns pool_h [S, N, bottleneck] (zeros at invalid i).
     """
     if impl not in IMPLS:
         raise ValueError(f"pool impl {impl!r} is not one of {IMPLS}")
@@ -77,9 +83,9 @@ def _pool_fast(params: dict, h: torch.Tensor, end_pos: torch.Tensor,
     u = end_pos @ Wu                                          # [S, N, 512]
     a = u + h @ W1[E:] + cvec                                 # [S, N, 512]
     if impl == "kernel" or (impl == "auto" and a.is_cuda):
-        from grouptraj_torch.ops.cuda_pool import pool_core_fwd
-        pooled, _ = pool_core_fwd(a[None], u[None], W2[None], b2[None],
-                                  valid[None].float())
+        from grouptraj_torch.ops.cuda_pool import PoolCore
+        pooled, _ = PoolCore.apply(a[None], u[None], W2[None], b2[None],
+                                   valid[None].float())
         pooled = pooled[0]
     else:
         pooled, _ = pool_core(a, u, W2, b2, valid)
@@ -96,13 +102,62 @@ def pool_core(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
 
     a/u ``[..., S, N, K]``, W2 ``[..., K, B]``, b2 ``[..., B]``, valid
     ``[..., S, N]`` with matching (or broadcastable) leading replica dims
-    -> (pooled, cnt) ``[..., S, N, B]`` float32. Rows at invalid i hold the
+    -> (pooled, cnt) ``[..., S, N, B]`` in a's dtype. Rows at invalid i hold the
     masked max; callers re-mask them."""
-    W2, b2 = W2.float(), b2.float()
+    W2, b2 = W2.to(a.dtype), b2.to(a.dtype)
     z = a.unsqueeze(-3) - u.unsqueeze(-2)                     # [.., S, i, j, K]
     o = torch.relu(torch.relu(z) @ W2.unsqueeze(-3).unsqueeze(-3)
                    + b2[..., None, None, None, :])            # [.., S, i, j, B]
     o = o.masked_fill(~(valid[..., None, :, None] > 0), _NEG)
     pooled = o.amax(dim=-2)
-    cnt = (o == pooled.unsqueeze(-2)).sum(dim=-2, dtype=torch.float32)
+    cnt = (o == pooled.unsqueeze(-2)).sum(dim=-2, dtype=a.dtype)
     return pooled, cnt
+
+
+def pool_core_bwd_plain(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
+                        b2: torch.Tensor, valid: torch.Tensor,
+                        pooled: torch.Tensor, cnt: torch.Tensor,
+                        dpool: torch.Tensor,
+                        ties: Optional[torch.Tensor] = None,
+                        debug: Optional[dict] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """Backward of :func:`pool_core`, plain PyTorch, by the backward
+    kernel's formula: with ``o`` recomputed as the forward computes it,
+
+        gd  = dpool / max(cnt, 1)
+        dq  = gd · [o == pooled] · valid_j · [o > 0] · valid_i
+        dh1 = dq @ W2ᵀ,  dz = dh1 · [z > 0]
+        da_j = Σ_i dz,  du_i = −Σ_j dz,  dW2 = Σ h1ᵀ dq,  db2 = Σ dq
+
+    per replica -> (da, du ``[..., S, N, K]``, dW2 ``[..., K, B]``, db2
+    ``[..., B]``). ``pooled`` and ``cnt`` must come from :func:`pool_core`
+    on the same inputs (the equality is exact only against the same
+    arithmetic); rows at invalid i carry no gradient whatever ``dpool``
+    holds there. ``ties`` (bool ``[..., S, N, N, B]`` over (i, j, b))
+    replaces the ``[o == pooled]`` selection — how a comparison hands this
+    function the selection another implementation of the forward made.
+    ``debug``, when a dict, receives ``ties`` (the selection used, masks
+    applied) and ``recount`` (the number of valid j with ``o == pooled``)."""
+    W2, b2 = W2.to(a.dtype), b2.to(a.dtype)
+    vj = valid[..., None, :, None] > 0                        # [.., S, 1, j, 1]
+    vi = valid[..., :, None, None] > 0                        # [.., S, i, 1, 1]
+    z = a.unsqueeze(-3) - u.unsqueeze(-2)                     # [.., S, i, j, K]
+    h1 = torch.relu(z)
+    o = torch.relu(h1 @ W2.unsqueeze(-3).unsqueeze(-3)
+                   + b2[..., None, None, None, :])            # [.., S, i, j, B]
+    eq = (o == pooled.unsqueeze(-2)) & vj
+    sel = (eq if ties is None else ties) & vj & vi & (o > 0)
+    if debug is not None:
+        debug["ties"] = sel
+        debug["recount"] = eq.sum(dim=-2, dtype=a.dtype)
+    gd = dpool / torch.clamp(cnt, min=1.0)
+    dq = gd.unsqueeze(-2) * sel                               # [.., S, i, j, B]
+    dz = (dq @ W2.unsqueeze(-3).unsqueeze(-3).transpose(-1, -2)) * (z > 0)
+    da = dz.sum(dim=-3)
+    du = -dz.sum(dim=-2)
+    K, B = W2.shape[-2:]
+    lead = W2.shape[:-2]
+    dW2 = h1.reshape(*lead, -1, K).transpose(-1, -2) @ dq.reshape(*lead, -1, B)
+    db2 = dq.reshape(*lead, -1, B).sum(dim=-2)
+    return da, du, dW2, db2

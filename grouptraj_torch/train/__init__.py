@@ -1,1 +1,2 @@
-"""Training-side modules of the port (this slice: checkpoint loading)."""
+"""Training-side modules of the port: checkpoint loading, the
+device-resident batch gather and the d/g training steps."""

@@ -6,8 +6,12 @@ package, and the port's independence from it.
 - every zoo checkpoint loads through the port's own unpickler (no optax,
   no JAX) and resolves to the same config as in grouptraj;
 - the ``gat`` files build a Predictor, the others raise;
+- a JAX ``TrainState``'s generator and discriminator trees round-trip
+  through ``params_from_jax`` into the port's modules and back out of
+  their ``tree()`` views;
 - importing the port (and running chip_smoke.py without a card) loads
-  none of jax, optax or grouptraj.
+  none of jax, optax or grouptraj; the source scan names the modules it
+  must have seen.
 """
 
 import ast
@@ -27,7 +31,14 @@ from grouptraj.compat.torch_import import export_state_dicts
 from grouptraj.config import MODEL_PRESETS
 from grouptraj.models import init_generator
 from grouptraj.train.checkpoint import load_checkpoint as jax_load
-from grouptraj_torch.compat import config_from_checkpoint_args, params_from_jax
+from grouptraj.config import TrainConfig as JaxTrainConfig
+from grouptraj.train.steps import init_train_state as jax_init_train_state
+from grouptraj_torch.compat import (
+    config_from_checkpoint_args, discriminator_state, generator_state,
+    params_from_jax,
+)
+from grouptraj_torch.config import ModelConfig
+from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
 from grouptraj_torch.models.generator import TrajectoryGenerator
 from grouptraj_torch.serve import Predictor
 from grouptraj_torch.train.checkpoint import load_checkpoint
@@ -62,6 +73,29 @@ def test_params_from_jax_rejects_other_presets():
                                            MODEL_PRESETS["gcn"]))
     with pytest.raises(NotImplementedError):
         params_from_jax(params)
+
+
+def test_train_state_bridge_round_trips():
+    """G and D of a JAX TrainState load into the port's modules, whose
+    JAX-shaped ``tree()`` views then hold the JAX leaves again, exactly."""
+    state = jax_init_train_state(jax.random.PRNGKey(3), MODEL_PRESETS["gat"],
+                                 JaxTrainConfig())
+    g, d = TrajectoryGenerator(ModelConfig()), TrajectoryDiscriminator(
+        ModelConfig())
+    g.load_state_dict(generator_state(
+        params_from_jax(jax.device_get(state.g_params))))
+    d.load_state_dict(discriminator_state(
+        params_from_jax(jax.device_get(state.d_params), "discriminator")))
+    for module, ref in ((g, state.g_params), (d, state.d_params)):
+        got, treedef = jax.tree_util.tree_flatten(module.tree())
+        want, ref_def = jax.tree_util.tree_flatten(ref)
+        assert treedef == ref_def
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
+    with pytest.raises(NotImplementedError):
+        params_from_jax(jax.device_get(state.g_params), "discriminator")
+    with pytest.raises(ValueError):
+        params_from_jax(jax.device_get(state.g_params), "critic")
 
 
 def test_zoo_loads_and_configs_match():
@@ -126,6 +160,13 @@ def test_no_source_imports_jax():
     """Lazy imports inside functions included."""
     files = glob.glob(os.path.join(ROOT, "grouptraj_torch/**/*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    seen = {os.path.relpath(f, ROOT) for f in files}
+    assert {"chip_smoke.py", "grouptraj_torch/losses.py",
+            "grouptraj_torch/models/discriminator.py",
+            "grouptraj_torch/train/steps.py",
+            "grouptraj_torch/train/device_data.py",
+            "grouptraj_torch/ops/cuda_pool.py",
+            "grouptraj_torch/ops/lstm.py"} <= seen
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in FORBIDDEN, (path, mod)

@@ -1,13 +1,18 @@
-"""The port's CUDA kernel on the card: K1 (csrc/pool_core_fwd.cu) against
-its plain PyTorch version, and the Predictor's kernel path against its
-plain-pool path. Marked ``cuda``; each test skips without a CUDA device.
+"""The port's CUDA kernels on the card: K1 (csrc/pool_core_fwd.cu) and K2
+(csrc/pool_core_bwd.cu) against their plain PyTorch versions, the
+Predictor's kernel path against its plain-pool path, and one training
+iteration through both kernels against the plain pool. Marked ``cuda``;
+each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: pooled atol 1e-4 (float32 sums of K=512 products in another
 order); ``cnt`` exact (ties come from equal inputs); positions 1e-3 m
-(the pool's rounding carried through the GAT and 12 decoder steps).
+(the pool's rounding carried through the GAT and 12 decoder steps); K2's
+da/du 1e-5 and dW2/db2 1e-4 relative to the largest reference entry, given
+the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
+training iteration's losses 1e-4 relative.
 """
 
 import dataclasses
@@ -88,3 +93,77 @@ def test_predictor_kernel_path_matches_plain_pool(cuda):
     assert pool_core_fwd.launches == before + 1
     for o, r in zip(out, plain.predict_batch(scenes, noises=noises)):
         assert np.abs(o - r).max() <= 1e-3
+
+
+@pytest.mark.parametrize("R,S,N,B", [(1, 8, 64, 8), (1, 16, 40, 48),
+                                     (2, 4, 24, 16)])
+def test_backward_kernel_matches_plain(cuda, R, S, N, B):
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core_bwd_plain
+    a, u, W2, b2, valid = _inputs(cuda, R, S, N, B, seed=N + B)
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid)
+    dpool = torch.randn_like(pooled)            # non-zero at invalid rows too
+    dbg = {}
+    before = pool_core_bwd.launches
+    out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool, debug=dbg)
+    assert pool_core_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    rows = valid > 0
+    assert torch.equal(dbg["recount"][rows], cnt[rows])
+    want = torch.where(rows[..., None] & (pooled > 0), cnt, 0.0)
+    assert torch.equal(dbg["ties"].sum(-2).float(), want)
+    ref = pool_core_bwd_plain(a, u, W2, b2, valid, pooled, cnt, dpool,
+                              ties=dbg["ties"])
+    for x, r, tol in zip(out, ref, (1e-5, 1e-5, 1e-4, 1e-4)):
+        assert (x - r).abs().max().item() <= tol * max(1.0, r.abs().max().item())
+    assert (out[0][~rows] == 0).all() and (out[1][~rows] == 0).all()
+
+
+def test_backward_kernel_splits_positive_ties(cuda):
+    from grouptraj_torch.ops.cuda_pool import PoolCore
+    from grouptraj_torch.ops.pooling import pool_core
+    a, u, W2, b2, valid = _inputs(cuda, 1, 4, 40, 8, seed=7)
+    valid.fill_(1.0)
+    a[:, :, 35] = a[:, :, 2]                # duplicate rows in two j-chunks
+    leaves = [t.clone().requires_grad_() for t in (a, u, W2, b2)]
+    pooled, cnt = PoolCore.apply(*leaves, valid)
+    assert ((cnt > 1) & (pooled > 0)).any()
+    pooled.sum().backward()
+    da = leaves[0].grad
+    assert torch.equal(da[:, :, 35], da[:, :, 2])   # tying rows share evenly
+    ref_leaves = [t.clone().requires_grad_() for t in (a, u, W2, b2)]
+    pool_core(*ref_leaves, valid)[0].sum().backward()
+    for x, r in zip(leaves, ref_leaves):
+        assert (x.grad - r.grad).abs().max().item() <= 1e-4 * max(
+            1.0, r.grad.abs().max().item())
+
+
+def test_training_iteration_goes_through_both_kernels(cuda):
+    import copy
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import (
+        init_train_state, train_iterations, train_state_from_modules,
+    )
+    cfg = ModelConfig()
+    tcfg = dataclasses.replace(TrainConfig(), best_k=4, bf16_nograd=False)
+    state = init_train_state(cfg, tcfg, device=cuda)
+    plain_cfg = dataclasses.replace(cfg, pool_impl="fast")
+    plain = train_state_from_modules(copy.deepcopy(state.g),
+                                     copy.deepcopy(state.d), tcfg)
+    plain.g.cfg = plain.d.cfg = plain_cfg
+    data = synthetic_device_data(32, 16, device=cuda)
+    idx = torch.arange(16, device=cuda).reshape(1, 2, 8)
+    fwd, bwd = pool_core_fwd.launches, pool_core_bwd.launches
+    out = train_iterations(state, data, idx, cfg, tcfg,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert pool_core_fwd.launches == fwd + 4
+    assert pool_core_bwd.launches == bwd + 3
+    ref = train_iterations(plain, data, idx, plain_cfg, tcfg,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert (pool_core_fwd.launches, pool_core_bwd.launches) == (fwd + 4,
+                                                                bwd + 3)
+    for k, v in out.items():
+        assert torch.isfinite(v).all()
+        assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k
