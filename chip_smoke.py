@@ -14,29 +14,44 @@ Phases, each of which fails the run on any error:
    scenes, odd sizes, ReLU-zero, duplicate-row and exact-input ties, a
    cotangent that is non-zero at invalid rows, and the recount of the
    forward's tie counts; kernel and plain times by CUDA events beside the
-   bound;
+   bound; then K3 (the whole-loop LSTM recurrence, csrc/lstm_fused_fwd.cu)
+   and K4 (its backward, csrc/lstm_fused_bwd.cu), both variants, against
+   their plain versions at the full-width shapes of the training step and
+   of serving (generator encoder T=8/B=4,096/H=32, discriminator encoder
+   T=20/B=8,192/H=48, decoder T=11 at B=8,192 with residuals and at
+   B=81,920 without) and at odd sizes (B=1, B=70, T=1, H=8, 16 and 64, all
+   cotangents non-zero or only dhT); times beside the bound, and
+   torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the encoder shapes;
 4. serve: the zoo checkpoint zara1_12 (the ``gat`` preset at full width)
    served at k=20 through Predictor.predict_batch on realistic scenes at
    the (S=64, N=64) and (S=256, N=16) buckets, with the launch counts of
    that run; then the same predictor forced to the plain pool core, the
    port on the CPU on a small batch, the default bf16 predictor, and
-   serving throughput per bucket;
+   serving throughput per bucket; then the same generator through
+   generator_context + generator_sample_many with impl='fused' (K3 for the
+   encoder and the decoder) against impl='scan': positions and ms per call
+   of both routes, in turns;
 5. profile: torch.profiler over three bf16 calls at S=64, N=64 — device
    busy share and time by kernel (table in chiprun_out/profile_serve.txt);
 6. train: ModelConfig()/TrainConfig() at full width (batch 64, best_k=20)
    from a seeded state on synthetic device-resident data: one iteration's
    losses and every parameter gradient with the kernels against the plain
    pool core, and on a small batch against the port on the CPU; then 30
-   iterations of train_iterations at (S=64, N=64) and (S=64, N=16) with
-   the launch counts of that run, iterations per second and ms per d-step
-   and g-step; then torch.profiler over three iterations (table in
-   chiprun_out/profile_train.txt).
+   one iteration with lstm_impl='fused' (K3 x7, K4 x4) against 'scan' and
+   against the fused route on the kernels' plain versions; then
+   train_iterations at (S=64, N=64) and (S=64, N=16) on both routes in
+   turns (scan 10 iterations, fused 30, fused 30, scan 10, each from the
+   same state) with the launch counts of each run, iterations per second
+   and ms per d-step and g-step; then torch.profiler over three iterations
+   of each route (tables in chiprun_out/profile_train.txt and
+   profile_train_fused.txt).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -53,10 +68,19 @@ HBM_BW = 3.35e12             # H100 SXM HBM bytes/s
 POOL_ATOL = 1e-4             # kernel vs plain, pooled (see check_kernel)
 BWD_RTOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}  # check_bwd
 SERVE_ATOL = 1e-3            # metres, kernel vs plain pool end to end
-# device functions of K1 (the first) and K2 (the rest), as a trace names them
-POOL_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "rows_kernel",
-                "weight_partials_kernel", "weight_reduce_kernel")
-TRAIN_ITERS = 30             # iterations of the training main path
+# device functions of K1 (the first), K2 (the next four), K3 and K4 (two),
+# as a trace names them
+PORT_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "rows_kernel",
+                "weight_partials_kernel", "weight_reduce_kernel",
+                "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
+                "reduce_partials_kernel")
+TRAIN_ITERS = {"scan": 10, "fused": 30}   # iterations of a training run
+LSTM_FWD_ATOL = 1e-5         # K3 vs plain: float32 sums of H <= 64 products
+LSTM_BWD_RTOL = 1e-4         # K4 vs plain, of each tensor's largest entry
+# float32 operations per (step, row, unit) beside the matrix products: the
+# forward's 4 adds, 5 activations, 4 for c and h; the backward's tanh,
+# cell, carries and the four dz (each activation counted once)
+LSTM_GATE_OPS = {"fwd": 13, "bwd": 25}
 # one training iteration, kernels vs plain pool and card vs CPU: losses
 # relative; each gradient tensor's max |Δ| relative to its largest entry
 # (float32 sums in other orders through 20-step LSTMs and the 512-wide
@@ -405,13 +429,189 @@ def kernel_bwd_phase(rng):
     return max(errs), timed
 
 
+# ------------------------------------------------------------ lstm kernels
+
+def lstm_inputs(gen, T, B, H, with_gx):
+    """w, h0, c0 and gx or b on the card at the scale the models give them
+    (weights ~1/sqrt(H), states of a few tenths), plus cotangents."""
+    import torch
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    w, h0, c0 = r(H, 4 * H) / H ** 0.5, 0.5 * r(B, H), 0.5 * r(B, H)
+    gx = r(T, B, 4 * H) if with_gx else None
+    b = None if with_gx else 0.1 * r(4 * H)
+    return w, h0, c0, gx, b, (r(T, B, H), r(B, H), r(B, H))
+
+
+def lstm_bound_ms(kind, T, B, H, with_gx, save=False, cot=(True, True, True)):
+    """Least time for K3 (``kind='fwd'``) or K4 (``'bwd'``) on these shapes.
+    Operations: the recurrent product 2*T*B*H*4H (twice that backward:
+    dz @ W^T and h^T dz) plus LSTM_GATE_OPS per (step, row, unit), over the
+    float32 peak. Bytes, each once over HBM bandwidth: forward w, gx or b,
+    h0, c0 read and ys, hT, cT (and gates, cs when saved) written; backward
+    w, h0, c0, ys, gates, cs and the cotangents given read, dgx (or db),
+    dw, dh0, dc0 written."""
+    tbh = T * B * H
+    if kind == "fwd":
+        ops = 2 * tbh * 4 * H + LSTM_GATE_OPS["fwd"] * tbh
+        floats = (4 * H * H + (4 * tbh if with_gx else 4 * H) + 4 * B * H
+                  + tbh + (5 * tbh if save else 0))
+    else:
+        ops = 4 * tbh * 4 * H + LSTM_GATE_OPS["bwd"] * tbh
+        floats = (8 * H * H + 4 * B * H + 6 * tbh
+                  + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H
+                  + (4 * tbh if with_gx else 4 * H))
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_lstm(name, gen, T, B, H, with_gx, save=True, cot=(True, True, True),
+               timed=None):
+    """K3, then K4 on K3's residuals, against their plain versions on the
+    card. Forward outputs (ys, hT, cT, gates, cs) within LSTM_FWD_ATOL;
+    each gradient within LSTM_BWD_RTOL of its largest entry; all finite.
+    ``cot`` says which of (dys, dhT, dcT) are given (the decoder variant
+    takes dys only). With ``timed`` (a dict) the median kernel and plain
+    times and the bounds are stored under ``name``."""
+    import torch
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import (
+        _fused_fwd_plain, fused_recurrence_bwd_plain,
+    )
+    w, h0, c0, gx, b, cots = lstm_inputs(gen, T, B, H, with_gx)
+    fwd = lambda: lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save)
+    plain_fwd = lambda: _fused_fwd_plain(w, gx, b, h0, c0, T, save)
+    out, ref = fwd(), plain_fwd()
+    torch.cuda.synchronize()
+    if (out[3] is None) != (not save) or (out[4] is None) != (not save):
+        fail(f"lstm case {name}: residuals do not follow the save flag")
+    ferr = max((x - y).abs().max().item() for x, y in zip(out, ref)
+               if x is not None)
+    ok = ferr <= LSTM_FWD_ATOL and all(bool(torch.isfinite(x).all())
+                                       for x in out if x is not None)
+    msg = (f"kernel lstm {name}: T={T} B={B} H={H} "
+           f"{'gx' if with_gx else 'decoder'} variant, residuals "
+           f"{'saved' if save else 'not saved'}: fwd max_abs_err={ferr:.3e}")
+    berr = brel = 0.0
+    if save:
+        ys, _, _, gates, cs = out
+        cot = cot if with_gx else (True, False, False)
+        given = [c if use else None for c, use in zip(cots, cot)]
+        bwd = lambda: lstm_fused_bwd(w, h0, c0, ys, gates, cs, *given,
+                                     with_gx)
+        plain_bwd = lambda: fused_recurrence_bwd_plain(
+            w, h0, c0, ys, gates, cs, *given, with_gx)
+        got, want = bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        for key, x, y in zip(("dgx", "dw", "db", "dh0", "dc0"), got, want):
+            if (x is None) != (y is None):
+                fail(f"lstm case {name}: {key} given by one side only")
+            if x is None:
+                continue
+            err = (x - y).abs().max().item()
+            rel = err / max(y.abs().max().item(), 1e-30)
+            berr, brel = max(berr, err), max(brel, rel)
+            ok &= rel <= LSTM_BWD_RTOL and bool(torch.isfinite(x).all())
+        msg += (f"; bwd cotangents (dys, dhT, dcT)={tuple(map(int, cot))} "
+                f"max_abs_err={berr:.3e} worst max|d|/max|ref|={brel:.3e}")
+    print(msg)
+    if not ok:
+        fail(f"lstm kernel case {name} disagrees with the plain version")
+    if timed is not None:
+        entry = {}
+        bound, by = lstm_bound_ms("fwd", T, B, H, with_gx, save)
+        entry["fwd"] = dict(ms=time_ms(fwd), plain_ms=time_ms(
+            plain_fwd, reps=5, warmup=1), bound_ms=bound, bound_by=by)
+        if save:
+            bound, by = lstm_bound_ms("bwd", T, B, H, with_gx, cot=cot)
+            entry["bwd"] = dict(ms=time_ms(bwd), plain_ms=time_ms(
+                plain_bwd, reps=5, warmup=1), bound_ms=bound, bound_by=by)
+        timed[name] = entry
+        for kind, e in entry.items():
+            print(f"kernel lstm {name} {kind} time: kernel_ms={e['ms']:.4f} "
+                  f"plain_ms={e['plain_ms']:.4f} bound_ms="
+                  f"{e['bound_ms']:.4f} ({e['bound_by']}) kernel/bound="
+                  f"{e['ms'] / e['bound_ms']:.2f}")
+    return ferr, berr
+
+
+def library_lstm(gen, name, T, B, D, H):
+    """torch.nn.LSTM (cuDNN, TF32 off), the nearest single PyTorch call,
+    beside the fused route at an encoder's shape, the input projection
+    included on both sides: forward without grad, and forward + backward
+    from a cotangent on hT. Timed here only; the port never calls it."""
+    import torch
+    from grouptraj_torch.ops.lstm import lstm_scan
+    lib = torch.nn.LSTM(D, H).cuda()
+    params = {"w_ih": lib.weight_ih_l0.t(), "w_hh": lib.weight_hh_l0.t(),
+              "b_ih": lib.bias_ih_l0, "b_hh": lib.bias_hh_l0}
+    xs = torch.randn(T, B, D, generator=gen, device="cuda",
+                     requires_grad=True)
+    leaves = list(lib.parameters()) + [xs]
+    ones = torch.ones(B, H, device="cuda")
+    with torch.no_grad():
+        ref, ours = lib(xs)[1][0][0], lstm_scan(params, xs, impl="fused")[1][0]
+        err = (ref - ours).abs().max().item()
+        lib_fwd = time_ms(lambda: lib(xs))
+        our_fwd = time_ms(lambda: lstm_scan(params, xs, impl="fused"))
+    lib_fb = time_ms(lambda: torch.autograd.grad(lib(xs)[1][0][0], leaves,
+                                                 ones))
+    our_fb = time_ms(lambda: torch.autograd.grad(
+        lstm_scan(params, xs, impl="fused")[1][0], leaves, ones))
+    print(f"library lstm {name}: T={T} B={B} D={D} H={H} nn.LSTM fwd "
+          f"{lib_fwd:.4f} ms, matmul+K3 fwd {our_fwd:.4f} ms; nn.LSTM "
+          f"fwd+bwd {lib_fb:.4f} ms, matmul+K3+K4 fwd+bwd {our_fb:.4f} ms; "
+          f"max |hT - hT_cudnn| = {err:.3e}")
+    if not err <= 1e-4:
+        fail(f"library lstm {name}: the fused route disagrees with nn.LSTM")
+    return dict(library_fwd_ms=lib_fwd, fused_route_fwd_ms=our_fwd,
+                library_fwd_bwd_ms=lib_fb, fused_route_fwd_bwd_ms=our_fb)
+
+
+def lstm_kernel_phase():
+    """K3 and K4 at the shapes the main paths give them (timed), then odd
+    sizes. Returns the largest absolute errors and the timings."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timed, ferrs, berrs = {}, [], []
+    enc, dec = (False, True, False), (True, False, False)
+    main = [   # name, T, B, H, gx variant, residuals, cotangents given
+        ("G_encoder_T8_B4096_H32", 8, 4096, 32, True, True, enc),
+        ("D_encoder_T20_B4096_H48", 20, 4096, 48, True, True, enc),
+        ("D_encoder_T20_B8192_H48", 20, 8192, 48, True, True, enc),
+        ("decoder_T11_B4096_H32_nograd", 11, 4096, 32, False, False, dec),
+        ("decoder_T11_B8192_H32", 11, 8192, 32, False, True, dec),
+        ("decoder_T11_B81920_H32_nograd", 11, 81920, 32, False, False, dec)]
+    for name, T, B, H, with_gx, save, cot in main:
+        f, b = check_lstm(name, gen, T, B, H, with_gx, save, cot, timed)
+        ferrs.append(f)
+        berrs.append(b)
+        torch.cuda.empty_cache()
+    odd = [("B1", 5, 1, 32, True), ("B1_decoder", 5, 1, 32, False),
+           ("B70", 8, 70, 32, True), ("B70_decoder", 11, 70, 32, False),
+           ("T1", 1, 33, 48, True), ("T1_decoder", 1, 33, 32, False),
+           ("H8", 5, 9, 8, True), ("H8_decoder", 7, 9, 8, False),
+           ("H16", 6, 16, 16, True), ("H16_decoder", 7, 9, 16, False),
+           ("H64", 4, 40, 64, True), ("H64_decoder", 3, 40, 64, False)]
+    for name, T, B, H, with_gx in odd:       # dys, dhT and dcT all non-zero
+        f, b = check_lstm(name, gen, T, B, H, with_gx)
+        ferrs.append(f)
+        berrs.append(b)
+    f, b = check_lstm("only_dys", gen, 6, 50, 32, True, cot=dec)
+    library = {
+        "G_encoder_T8_B4096_H32": library_lstm(gen, "G_encoder", 8, 4096,
+                                               16, 32),
+        "D_encoder_T20_B8192_H48": library_lstm(gen, "D_encoder", 20, 8192,
+                                                16, 48)}
+    return max(ferrs + [f]), max(berrs + [b]), timed, library
+
+
 # ----------------------------------------------------------------- serve
 
 def serve_phase(batches, noises):
     import numpy as np
     import torch
     from grouptraj_torch.compat import config_from_checkpoint_args
-    from grouptraj_torch.ops.cuda_pool import pool_core_fwd
     from grouptraj_torch.serve import Predictor
     from grouptraj_torch.train.checkpoint import load_checkpoint
 
@@ -425,14 +625,16 @@ def serve_phase(batches, noises):
                                     device="cuda")
 
     # the main path: every count at 0 just before, read just after
-    pool_core_fwd.launches = 0
+    reset_counts()
     out32 = {b: p32.predict_batch(sc, gr, noises=noises[b])
              for b, (sc, gr) in batches.items()}
     torch.cuda.synchronize()
-    launches = {"pool_core_fwd": pool_core_fwd.launches}
+    launches = all_counts()
     print(f"serve main path launches: {json.dumps(launches)}")
     if launches["pool_core_fwd"] == 0:
         fail("the serving path never launched pool_core_fwd")
+    if launches["lstm_fused_fwd"]:
+        fail("the Predictor serves on the scan route: it must not launch K3")
     for b, outs in out32.items():
         sizes = [s.shape[0] for s in batches[b][0]]
         if not all(o.shape == (K, n, cfg.pred_len, 2)
@@ -488,7 +690,90 @@ def serve_phase(batches, noises):
             print(f"serve throughput {name} {b}: {n_traj / med:.0f} traj/s "
                   f"({med * 1e3:.2f} ms per predict_batch, {n_traj} "
                   f"trajectories)")
-    return launches, p16, call_ms
+    return launches, p16, p32, call_ms
+
+
+def lstm_counts():
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    return {"lstm_fused_fwd": lstm_fused_fwd.launches,
+            "lstm_fused_bwd": lstm_fused_bwd.launches}
+
+
+def reset_counts():
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    for wrapper in (pool_core_fwd, pool_core_bwd, lstm_fused_fwd,
+                    lstm_fused_bwd):
+        wrapper.launches = 0
+
+
+def all_counts():
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    return {"pool_core_fwd": pool_core_fwd.launches,
+            "pool_core_bwd": pool_core_bwd.launches, **lstm_counts()}
+
+
+def serve_fused_phase(predictor, batches, noises):
+    """Serving on the fused route: the Predictor's float32 generator driven
+    through generator_context + generator_sample_many with impl='fused'
+    (the Predictor itself has no such knob, as in the JAX package), on the
+    padded batches predict_batch builds, against impl='scan'."""
+    import numpy as np
+    import torch
+    from grouptraj_torch.utils import relative_to_abs
+
+    model, cfg = predictor.model, predictor.cfg
+
+    @torch.inference_mode()
+    def call(tensors, z, impl):
+        """Device tensors in, host array out: one serving call's work."""
+        obs, rel, grp, valid = tensors
+        ctx = model.generator_context(obs, rel, grp, valid, impl=impl)
+        preds = model.generator_sample_many(ctx, rel, valid, K,
+                                            user_noises=z, impl=impl)
+        return relative_to_abs(preds, obs[None, :, :, -1, :]).cpu().numpy()
+
+    tensors = {b: predictor.pad_batch(*batches[b]) for b in BUCKETS}
+    reset_counts()
+    out = {b: call(tensors[b], noises[b], "fused") for b in BUCKETS}
+    torch.cuda.synchronize()
+    launches = all_counts()
+    print(f"serve fused main path launches: {json.dumps(launches)}")
+    if launches["lstm_fused_fwd"] != 2 * len(BUCKETS) \
+            or launches["pool_core_fwd"] != len(BUCKETS):
+        fail("a fused serving call must launch K3 twice (encoder, decoder) "
+             "and K1 once")
+    call_ms = {}
+    for b, (S, N, _) in BUCKETS.items():
+        ref = call(tensors[b], noises[b], "scan")
+        rows = tensors[b][3].cpu().numpy() > 0
+        d = np.abs(out[b] - ref)[:, rows].max()
+        if out[b].shape != (K, S, N, cfg.pred_len, 2) \
+                or not np.isfinite(out[b]).all():
+            fail(f"serve fused {b}: outputs not finite or of the wrong shape")
+        print(f"serve fused {b}: fused vs scan max |dpos| = {d:.3e} m "
+              f"(tolerance {SERVE_ATOL} m)")
+        if not d <= SERVE_ATOL:
+            fail(f"serve fused {b}: the fused route disagrees with scan")
+        n_traj = K * int(rows.sum())
+        secs = {"scan": [], "fused": []}
+        for impl in ("scan", "fused", "fused", "scan"):       # in turns
+            call(tensors[b], noises[b], impl)                 # warm
+            for _ in range(5):
+                t0 = time.perf_counter()
+                call(tensors[b], noises[b], impl)   # host arrays: synced
+                secs[impl].append(time.perf_counter() - t0)
+        for impl, v in secs.items():
+            med = statistics.median(v)
+            call_ms[f"{impl}_{b}"] = med * 1e3
+            print(f"serve {impl} route f32 {b}: {med * 1e3:.2f} ms per call "
+                  f"(context + k={K} decode + copy to the host, median of "
+                  f"10), {n_traj / med:.0f} traj/s")
+    fused_calls = 1 + 2 * 6          # per bucket: the main path, two turns
+    if lstm_counts()["lstm_fused_fwd"] != 2 * len(BUCKETS) * fused_calls:
+        fail("the scan route launched K3, or the fused route skipped it")
+    return launches, call_ms, lambda impl: call(
+        tensors["S64_N64"], noises["S64_N64"], impl)
 
 
 def profile_phase(run, unit, out_name, wall_ms):
@@ -528,13 +813,13 @@ def profile_phase(run, unit, out_name, wall_ms):
     for t, key, count in dev[:12]:
         print(f"profile:   {t / 3e3:8.4f} ms/call {100 * t / 3e3 / busy_ms:5.1f}%"
               f" x{count // 3} {key[:80]}")
-    pool = {name: sum(t for t, key, _ in dev if name in key) / 3e3
-            for name in POOL_KERNELS}
-    print(f"profile: pool kernels per {unit}: "
-          + " ".join(f"{name}={ms:.4f}ms" for name, ms in pool.items())
-          + f" total={sum(pool.values()):.4f}ms "
-          f"({100 * sum(pool.values()) / busy_ms:.1f}% of device busy, "
-          f"{100 * sum(pool.values()) / wall_ms:.1f}% of wall)")
+    own = {name: sum(t for t, key, _ in dev if name in key) / 3e3
+           for name in PORT_KERNELS}
+    print(f"profile: the port's kernels per {unit}: "
+          + " ".join(f"{name}={ms:.4f}ms" for name, ms in own.items() if ms)
+          + f" total={sum(own.values()):.4f}ms "
+          f"({100 * sum(own.values()) / busy_ms:.1f}% of device busy, "
+          f"{100 * sum(own.values()) / wall_ms:.1f}% of wall)")
 
 
 # ----------------------------------------------------------------- train
@@ -582,12 +867,15 @@ def _loss_report(what, got, ref):
         fail(f"{what}: losses disagree")
 
 
-def _one_iteration(state, batch, cfg, tcfg, noise, noises, label):
+def _one_iteration(state, batch, cfg, tcfg, noise, noises, label,
+                   impl="scan"):
     """Losses and gradients of one d-step and one g-step from ``state``,
     nothing updated."""
     from grouptraj_torch.train.steps import d_gradients, g_gradients
-    ld, gd = d_gradients(state, batch, cfg, tcfg, noise=noise, label=label)
-    lg, gg = g_gradients(state, batch, cfg, tcfg, noises=noises, label=label)
+    ld, gd = d_gradients(state, batch, cfg, tcfg, noise=noise, label=label,
+                         impl=impl)
+    lg, gg = g_gradients(state, batch, cfg, tcfg, noises=noises, label=label,
+                         impl=impl)
     names = [f"D.{k}" for k, _ in state.d.named_parameters()] \
         + [f"G.{k}" for k, _ in state.g.named_parameters()]
     return {**ld, **lg}, names, list(gd) + list(gg)
@@ -611,7 +899,8 @@ def train_phase():
     data = {64: synthetic_device_data(256, 64, seed=3, device="cuda"),
             16: synthetic_device_data(256, 16, seed=4, device="cuda")}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    idx = {N: torch.randint(0, 256, (TRAIN_ITERS, 2, S), generator=gen,
+    idx = {N: torch.randint(0, 256, (max(TRAIN_ITERS.values()), 2, S),
+                            generator=gen,
                             device="cuda") for N in data}
     batch = gather_batch(data[64], idx[64][0, 0], cfg.obs_len)
     # The discriminator's score passes a trailing ReLU (a quirk the port
@@ -678,50 +967,114 @@ def train_phase():
     _grad_report("train S8_N16 GPU vs CPU", names, grads, ref_grads)
     del cpu, ref_grads, grads
 
-    # (c) the main path: TRAIN_ITERS iterations with the defaults, the
-    # widest bucket first; every count at 0 just before, read just after
-    launches, it_ms, step_ms = {}, {}, {}
+    # (c) one iteration on the fused route (K3 x7, K4 x4) against the scan
+    # route, and against the fused route with the kernels' wrappers
+    # replaced by their plain versions
+    losses, names, grads = _one_iteration(state, batch, cfg, f32, **draw)
+    before = lstm_counts()
+    f_losses, _, f_grads = _one_iteration(state, batch, cfg, f32, **draw,
+                                          impl="fused")
+    torch.cuda.synchronize()
+    per_iter = {k_: v - before[k_] for k_, v in lstm_counts().items()}
+    print("train S64_N64 fused: one iteration launched "
+          + json.dumps(per_iter))
+    if per_iter != {"lstm_fused_fwd": 7, "lstm_fused_bwd": 4}:
+        fail("a fused iteration must launch K3 7 times and K4 4 times")
+    _loss_report("train S64_N64 fused vs scan", f_losses, losses)
+    _grad_report("train S64_N64 fused vs scan", names, f_grads, grads)
+    with plain_lstm_kernels():
+        p_losses, _, p_grads = _one_iteration(state, batch, cfg, f32, **draw,
+                                              impl="fused")
+    if lstm_counts() != {k_: v + before[k_] for k_, v in per_iter.items()}:
+        fail("the plain fused iteration launched an LSTM kernel")
+    _loss_report("train S64_N64 fused kernels vs plain fused", f_losses,
+                 p_losses)
+    _grad_report("train S64_N64 fused kernels vs plain fused", names, f_grads,
+                 p_grads)
+    del grads, f_grads, p_grads
+
+    # (d) the main paths: train_iterations with the defaults on both routes,
+    # in turns, every run from a copy of the same state; the widest bucket
+    # first; every count at 0 just before a run, read just after
+    launches, it_ms = {}, {}
     for N in (64, 16):
         tag = f"S{S}_N{N}"
-        train_iterations(state, data[N], idx[N][:3], cfg, tcfg, gen)  # warm
-        torch.cuda.synchronize()
-        pool_core_fwd.launches = pool_core_bwd.launches = 0
-        t0 = time.perf_counter()
-        out = train_iterations(state, data[N], idx[N], cfg, tcfg, gen)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = {"pool_core_fwd": pool_core_fwd.launches,
-                  "pool_core_bwd": pool_core_bwd.launches}
-        print(f"train {tag} main path launches: {json.dumps(counts)} over "
-              f"{TRAIN_ITERS} iterations ("
-              f"{counts['pool_core_fwd'] / TRAIN_ITERS:g} K1 and "
-              f"{counts['pool_core_bwd'] / TRAIN_ITERS:g} K2 per iteration)")
-        if min(counts.values()) == 0:
-            fail(f"train {tag}: a pool kernel was never launched")
-        if N == 64:
-            launches = counts
-        for name, v in out.items():
-            if v.shape != (TRAIN_ITERS,) or not torch.isfinite(v).all():
-                fail(f"train {tag}: loss {name} is not finite over the run")
-        last = {name: round(float(v[-1]), 5) for name, v in out.items()}
-        it_ms[tag] = secs * 1e3 / TRAIN_ITERS
-        print(f"train {tag}: {TRAIN_ITERS / secs:.1f} it/s "
-              f"({it_ms[tag]:.2f} ms per iteration); last losses "
-              f"{json.dumps(last)}")
+        ms = {"scan": [], "fused": []}
+        for impl in ("scan", "fused", "fused", "scan"):
+            iters = TRAIN_ITERS[impl]
+            run = train_state_from_modules(copy.deepcopy(state.g),
+                                           copy.deepcopy(state.d), tcfg)
+            train_iterations(run, data[N], idx[N][:2], cfg, tcfg, gen,
+                             impl=impl)                          # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = train_iterations(run, data[N], idx[N][:iters], cfg, tcfg,
+                                   gen, impl=impl)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = all_counts()
+            per = {k_: v / iters for k_, v in counts.items()}
+            want = {"pool_core_fwd": 4, "pool_core_bwd": 3,
+                    "lstm_fused_fwd": 7 * (impl == "fused"),
+                    "lstm_fused_bwd": 4 * (impl == "fused")}
+            print(f"train {tag} {impl} main path launches: "
+                  f"{json.dumps(counts)} over {iters} iterations")
+            if per != want:
+                fail(f"train {tag} {impl}: launches per iteration {per}, "
+                     f"expected {want}")
+            launches.setdefault((impl, N), counts)
+            for name, v in out.items():
+                if v.shape != (iters,) or not torch.isfinite(v).all():
+                    fail(f"train {tag} {impl}: loss {name} is not finite "
+                         f"over the run")
+            last = {name: round(float(v[-1]), 5) for name, v in out.items()}
+            ms[impl].append(secs * 1e3 / iters)
+            print(f"train {tag} {impl}: {iters / secs:.1f} it/s "
+                  f"({ms[impl][-1]:.2f} ms per iteration); last losses "
+                  f"{json.dumps(last)}")
         b = gather_batch(data[N], idx[N][0, 0], cfg.obs_len)
-        step_ms[tag] = (
-            time_ms(lambda: d_step(state, b, cfg, tcfg, gen), reps=10),
-            time_ms(lambda: g_step(state, b, cfg, tcfg, gen), reps=10))
-        print(f"train {tag}: d-step {step_ms[tag][0]:.3f} ms, g-step "
-              f"{step_ms[tag][1]:.3f} ms (CUDA events around one step, "
-              f"median of 10)")
+        for impl in ("scan", "fused"):
+            it_ms[(impl, N)] = statistics.mean(ms[impl])
+            d_ms = time_ms(lambda: d_step(run, b, cfg, tcfg, gen, impl=impl),
+                           reps=10)
+            g_ms = time_ms(lambda: g_step(run, b, cfg, tcfg, gen, impl=impl),
+                           reps=10)
+            print(f"train {tag} {impl}: mean of its two runs "
+                  f"{1e3 / it_ms[(impl, N)]:.1f} it/s; d-step {d_ms:.3f} ms, "
+                  f"g-step {g_ms:.3f} ms (CUDA events around one step, "
+                  f"median of 10)")
+        print(f"train {tag}: fused/scan = "
+              f"{it_ms[('scan', N)] / it_ms[('fused', N)]:.2f}x it/s")
 
-    # (d) where one iteration's time goes
-    profile_phase(lambda: train_iterations(state, data[64], idx[64][:1], cfg,
-                                           tcfg, gen),
-                  f"training iteration S{S}_N64", "profile_train.txt",
-                  it_ms[f"S{S}_N64"])
-    return launches
+    # (e) where one iteration's time goes, on both routes
+    for impl, out_name in (("scan", "profile_train.txt"),
+                           ("fused", "profile_train_fused.txt")):
+        profile_phase(lambda: train_iterations(state, data[64], idx[64][:1],
+                                               cfg, tcfg, gen, impl=impl),
+                      f"training iteration S{S}_N64 {impl}", out_name,
+                      it_ms[(impl, 64)])
+    return {impl: launches[(impl, 64)] for impl in ("scan", "fused")}
+
+
+@contextlib.contextmanager
+def plain_lstm_kernels():
+    """Within the block the wrappers of K3 and K4 run their plain PyTorch
+    versions on the card (a check's reference, never the port's path)."""
+    from grouptraj_torch.ops import cuda_lstm
+    from grouptraj_torch.ops.lstm import (
+        _fused_fwd_plain, fused_recurrence_bwd_plain,
+    )
+    saved = cuda_lstm.lstm_fused_fwd, cuda_lstm.lstm_fused_bwd
+    cuda_lstm.lstm_fused_fwd = (
+        lambda w, h0, c0, gx=None, b=None, T=None, save=False:
+        _fused_fwd_plain(w, gx, b, h0, c0,
+                         gx.shape[0] if gx is not None else T, save))
+    cuda_lstm.lstm_fused_bwd = fused_recurrence_bwd_plain
+    try:
+        yield
+    finally:
+        cuda_lstm.lstm_fused_fwd, cuda_lstm.lstm_fused_bwd = saved
 
 
 # ----------------------------------------------------------------- main
@@ -760,46 +1113,68 @@ def main():
     rng = np.random.default_rng(0)
     max_err, timed = kernel_phase(rng)
     bwd_err, bwd_timed = kernel_bwd_phase(rng)
+    k3_err, k4_err, lstm_timed, lstm_library = lstm_kernel_phase()
 
     batches = {b: make_scenes(rng, scene_sizes(rng, S, 2, hi))
                for b, (S, N, hi) in BUCKETS.items()}
     gen = torch.Generator(device="cuda").manual_seed(1)
     noises = {b: torch.randn((K, S, N, 8), generator=gen, device="cuda")
               for b, (S, N, _) in BUCKETS.items()}
-    launches, p16, call_ms = serve_phase(batches, noises)
+    serve_launches, p16, p32, call_ms = serve_phase(batches, noises)
+    fused_serve_launches, fused_call_ms, fused_call = serve_fused_phase(
+        p32, batches, noises)
     sc, gr = batches["S64_N64"]
     profile_phase(lambda: p16.predict_batch(sc, gr, noises=noises["S64_N64"]),
                   "predict_batch", "profile_serve.txt",
                   call_ms["bf16_S64_N64"])
-    del p16
+    profile_phase(lambda: fused_call("fused"), "fused serving call f32",
+                  "profile_serve_fused.txt", fused_call_ms["fused_S64_N64"])
+    del p16, p32, fused_call
     train_launches = train_phase()
 
-    # launches: the serving main path plus the training main path (the
-    # 30 iterations at S=64, N=64), each counted from 0; no single PyTorch
-    # call computes either kernel's function, so library_ms is null
-    fwd, bwd = timed["S64_N64_B8"], bwd_timed["S128_N64_B48"]
-    record = {"kernels": [{
-        "name": "pool_core_fwd", "route": "cuda",
-        "source": "grouptraj_torch/csrc/pool_core_fwd.cu",
-        "replaces": "grouptraj/ops/pallas_pool.py:160",
-        "launches": launches["pool_core_fwd"]
-        + train_launches["pool_core_fwd"],
-        "launches_by_path": {"serve": launches["pool_core_fwd"],
-                             "train": train_launches["pool_core_fwd"]},
-        "max_abs_err": max_err, "shape": "S64_N64_B8",
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": None}, {
-        "name": "pool_core_bwd", "route": "cuda",
-        "source": "grouptraj_torch/csrc/pool_core_bwd.cu",
-        "replaces": "grouptraj/ops/pallas_pool.py:206",
-        "launches": train_launches["pool_core_bwd"],
-        "launches_by_path": {"serve": 0,
-                             "train": train_launches["pool_core_bwd"]},
-        "max_abs_err": bwd_err, "shape": "S128_N64_B48",
-        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "library_ms": None}]}
+    # launches: every main path, each driven with the counts at 0 just
+    # before it and read just after it: serving through the Predictor (scan
+    # route), serving on the fused route, and train_iterations at S=64,
+    # N=64 on the scan route (10 iterations) and on the fused route (30).
+    # No single PyTorch call computes a kernel's function, so library_ms is
+    # null; the nearest call for K3/K4, torch.nn.LSTM with the input
+    # projection on both sides, is under "nearest_library".
+    paths = {"serve": serve_launches, "serve_fused": fused_serve_launches,
+             "train": train_launches["scan"],
+             "train_fused": train_launches["fused"]}
+
+    def entry(name, source, replaces, err, shape, t, **more):
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
+                "shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, **more}
+
+    k3_shape, k4_shape = ("decoder_T11_B81920_H32_nograd",
+                          "D_encoder_T20_B8192_H48")
+    record = {"kernels": [
+        entry("pool_core_fwd", "grouptraj_torch/csrc/pool_core_fwd.cu",
+              "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
+              timed["S64_N64_B8"]),
+        entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
+              "grouptraj/ops/pallas_pool.py:206", bwd_err, "S128_N64_B48",
+              bwd_timed["S128_N64_B48"]),
+        entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",
+              "grouptraj/ops/pallas_fused.py:118", k3_err, k3_shape,
+              lstm_timed[k3_shape]["fwd"],
+              shapes={n: t["fwd"] for n, t in lstm_timed.items()},
+              nearest_library=lstm_library),
+        entry("lstm_fused_bwd", "grouptraj_torch/csrc/lstm_fused_bwd.cu",
+              "grouptraj/ops/pallas_fused.py:180", k4_err, k4_shape,
+              lstm_timed[k4_shape]["bwd"],
+              shapes={n: t["bwd"] for n, t in lstm_timed.items()
+                      if "bwd" in t},
+              nearest_library=lstm_library)]}
+    for kernel in record["kernels"]:
+        if kernel["launches"] == 0:
+            fail(f"{kernel['name']} was launched on no main path")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

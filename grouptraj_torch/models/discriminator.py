@@ -49,12 +49,13 @@ class TrajectoryDiscriminator(nn.Module):
                 "pool_net": self.pool_net.tree()}
 
     def forward(self, traj: torch.Tensor, traj_rel: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, impl: str = "scan") -> torch.Tensor:
         """traj and traj_rel [S, N, To+Tp, 2] (absolute, relative), valid
         [S, N] -> scores [S, N]; masked entries are scored but invalid —
-        callers reduce with the validity mask."""
+        callers reduce with the validity mask. ``impl`` is the encoder's
+        LSTM route (``ops/lstm.py``)."""
         cfg, p = self.cfg, self.tree()
-        final_h = _encode(p["encoder"], traj_rel)             # [S, N, Hd]
+        final_h = _encode(p["encoder"], traj_rel, impl)       # [S, N, Hd]
         classifier_input = pool_hidden_net(
             p["pool_net"], final_h, traj[:, :, 0, :], valid, cfg.activation,
             cfg.batch_norm, impl=cfg.pool_impl)

@@ -12,8 +12,11 @@ serving ``Predictor`` may hold bfloat16 weights under float32 activations
 and the training step's no-grad legs may decode entirely in bfloat16.
 
 Every function is differentiable (serving wraps its calls in
-``torch.inference_mode``, training does not). The ``gat`` preset is
-covered: pool_net pooling, the GAT graph module, no per-step re-pooling.
+``torch.inference_mode``, training does not) and takes ``impl``, the LSTM
+route of ``ops/lstm.py``: ``'scan'`` (default) or ``'fused'``, the
+whole-loop kernels for the encoder and the folded decoder. The ``gat``
+preset is covered: pool_net pooling, the GAT graph module, no per-step
+re-pooling.
 The other presets raise.
 """
 
@@ -27,8 +30,11 @@ from torch import nn
 
 from grouptraj_torch.config import ModelConfig
 from grouptraj_torch.models.modules import GATEncoder, gat_encoder
+from grouptraj_torch.ops.cuda_lstm import decoder_recurrence_fused
+from grouptraj_torch.ops.linear import linear
 from grouptraj_torch.ops.lstm import (
     decoder_first_step, decoder_proj_recurrence, encoder_recurrence,
+    lstm_scan,
 )
 from grouptraj_torch.ops.noise import get_noise
 from grouptraj_torch.ops.pooling import pool_hidden_net
@@ -136,13 +142,13 @@ class TrajectoryGenerator(nn.Module):
                 "gatencoder": self.gatencoder.tree()}
 
     def generator_context(self, obs: torch.Tensor, obs_rel: torch.Tensor,
-                          group_end: torch.Tensor, valid: torch.Tensor
-                          ) -> torch.Tensor:
+                          group_end: torch.Tensor, valid: torch.Tensor,
+                          impl: str = "scan") -> torch.Tensor:
         """Encoder → pooling → group GAT -> noise_input [S, N, decoder_h −
         noise]; computed once and shared by all best-of-k samples. obs and
         obs_rel are [S, N, To, 2], group_end and valid [S, N]."""
         cfg, p = self.cfg, self.tree()
-        final_h = _encode(p["encoder"], obs_rel)              # [S, N, He]
+        final_h = _encode(p["encoder"], obs_rel, impl)        # [S, N, He]
         pool_h = pool_hidden_net(p["pool_net"], final_h, obs[:, :, -1, :],
                                  valid, cfg.activation, cfg.batch_norm,
                                  impl=cfg.pool_impl)
@@ -152,11 +158,11 @@ class TrajectoryGenerator(nn.Module):
     def generator_sample(self, noise_input: torch.Tensor,
                          obs_rel: torch.Tensor, valid: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         user_noise: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         user_noise: Optional[torch.Tensor] = None,
+                         impl: str = "scan") -> torch.Tensor:
         """One sample: noise concat + decode -> pred_rel [S, N, Tp, 2] in
-        ``noise_input``'s dtype (× valid). ``user_noise`` ``[S, N, nd]``
-        replaces the internal draw."""
+        ``noise_input``'s dtype (float32 with ``impl='fused'``), × valid.
+        ``user_noise`` ``[S, N, nd]`` replaces the internal draw."""
         cfg = self.cfg
         S, N = valid.shape
         h = noise_input
@@ -167,25 +173,25 @@ class TrajectoryGenerator(nn.Module):
                                   noise_input.device)[0]
             h = torch.cat([h, z.to(noise_input.dtype)], dim=-1)
         return _decode_folded(self.decoder.tree(), cfg, h,
-                              obs_rel[:, :, -1, :], valid)
+                              obs_rel[:, :, -1, :], valid, impl)
 
     def generator_forward(self, obs: torch.Tensor, obs_rel: torch.Tensor,
                           group_end: torch.Tensor, valid: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
-                          user_noise: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          user_noise: Optional[torch.Tensor] = None,
+                          impl: str = "scan") -> torch.Tensor:
         """One stochastic forward pass -> pred_rel [S, N, Tp, 2]:
         :meth:`generator_context` then :meth:`generator_sample`."""
-        ctx = self.generator_context(obs, obs_rel, group_end, valid)
+        ctx = self.generator_context(obs, obs_rel, group_end, valid, impl)
         return self.generator_sample(ctx, obs_rel, valid, generator,
-                                     user_noise)
+                                     user_noise, impl)
 
     def generator_sample_many(self, noise_input: torch.Tensor,
                               obs_rel: torch.Tensor, valid: torch.Tensor,
                               num_samples: int,
                               generator: Optional[torch.Generator] = None,
-                              user_noises: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              user_noises: Optional[torch.Tensor] = None,
+                              impl: str = "scan") -> torch.Tensor:
         """All K best-of-k samples in ONE decoder pass -> rel predictions
         [K, S, N, Tp, 2]: each sample's noise is concatenated to the shared
         context, then the scene axis is tiled K-fold into ``[K·S, N]`` rows
@@ -206,7 +212,7 @@ class TrajectoryGenerator(nn.Module):
 
         pred = _decode_folded(self.decoder.tree(), cfg,
                               h.reshape(K * S, N, -1),
-                              tile(obs_rel[:, :, -1, :]), tile(valid))
+                              tile(obs_rel[:, :, -1, :]), tile(valid), impl)
         return pred.reshape(K, S, N, cfg.pred_len, 2)
 
 
@@ -225,12 +231,22 @@ def sample_noises(cfg: ModelConfig, K: int, S: int, N: int,
     return get_noise((K, S, N, nd), cfg.noise_type, generator, device, dtype)
 
 
-def _encode(enc: dict, traj_rel: torch.Tensor) -> torch.Tensor:
-    """Linear(2→emb) folded into the LSTM's input gates, then the
-    recurrence; returns the final h [S, N, H] (reference Encoder,
-    models.py:32-92)."""
+def _encode(enc: dict, traj_rel: torch.Tensor, impl: str = "scan"
+            ) -> torch.Tensor:
+    """Linear(2→emb) then the LSTM over time; returns the final h
+    [S, N, H] (reference Encoder, models.py:32-92). On the scan route the
+    embedding is folded into the LSTM's input gates (exact algebra, no
+    embedded-input or gx slab); on the other routes it is a Linear and the
+    recurrence is :func:`lstm_scan` with that ``impl``, as in the JAX
+    package, so the two routes differ in the last bits."""
     S, N, T, _ = traj_rel.shape
     se, lstm = enc["spatial_embedding"], enc["lstm"]
+    if impl != "scan":
+        emb = linear(se, traj_rel)                            # [S, N, T, E]
+        xs = emb.reshape(S * N, T, -1).transpose(0, 1)        # [T, S·N, E]
+        _, (h_t, _) = lstm_scan({k: v.float() for k, v in lstm.items()}, xs,
+                                impl=impl)
+        return h_t.reshape(S, N, -1)
     w_ih = lstm["w_ih"].float()
     w_comp = se["w"].float() @ w_ih                          # [2, 4H]
     b_comp = (se["b"].float() @ w_ih + lstm["b_ih"].float()
@@ -241,8 +257,8 @@ def _encode(enc: dict, traj_rel: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_folded(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
-                   last_pos_rel: torch.Tensor, valid: torch.Tensor
-                   ) -> torch.Tensor:
+                   last_pos_rel: torch.Tensor, valid: torch.Tensor,
+                   impl: str = "scan") -> torch.Tensor:
     """The decoder with its sequential depth collapsed (exact algebra):
 
         gates_t = h_{t-1} @ W_eff + b_eff
@@ -251,7 +267,11 @@ def _decode_folded(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
 
     composed fresh on each call (so autograd reaches the original
     parameters), in ``h0``'s dtype. Step 1 uses the observed last relative
-    displacement. Returns pred_rel [S, N, T, 2], zero at invalid peds."""
+    displacement. With ``impl='fused'`` steps 2..T run in the whole-loop
+    kernel, which works and answers in float32 whatever ``h0``'s dtype
+    (state and bias are upcast, as the JAX package's kernel does), and
+    hidden2pos is one matmul over the stacked states. Returns pred_rel
+    [S, N, T, 2], zero at invalid peds."""
     S, N, H = h0.shape
     T = cfg.pred_len
     dt = h0.dtype
@@ -269,7 +289,11 @@ def _decode_folded(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
                                       last_pos_rel.to(dt).reshape(S * N, 2),
                                       h0.reshape(S * N, H))
     rels = rel1[None]                                         # [1, S·N, 2]
-    if T > 1:
+    if T > 1 and impl == "fused":
+        ys = decoder_recurrence_fused(w_eff, b_eff, h1, c1, T - 1)
+        rest = ys @ w_p.float() + b_p.float()                 # float32
+        rels = torch.cat([rels.float(), rest], dim=0)         # [T, S·N, 2]
+    elif T > 1:
         rest = decoder_proj_recurrence(w_eff, b_eff, w_p, b_p, h1, c1, T - 1)
         rels = torch.cat([rels, rest], dim=0)                 # [T, S·N, 2]
     pred_rel = rels.transpose(0, 1).reshape(S, N, T, 2)

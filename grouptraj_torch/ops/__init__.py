@@ -1,3 +1,5 @@
 """Tensor ops of the port. Each module mirrors the JAX package's module of
 the same name; ``cuda_pool`` holds the hand-written CUDA pair core
-(forward and backward) that replaces ``pallas_pool``."""
+(forward and backward) that replaces ``pallas_pool``, ``cuda_lstm`` the
+whole-loop LSTM recurrence (forward and backward) that replaces
+``pallas_fused``."""

@@ -1,26 +1,41 @@
 """Single-layer LSTM recurrences with hand-written backwards (counterpart
 of ``grouptraj/ops/lstm.py``).
 
-Plain Python loops over time with fused-gate matmuls, torch gate order
-(i, f, g, o), weights ``[in, 4H]`` / ``[H, 4H]`` as in the JAX package.
-These are the folded forms the JAX scan path runs, so parity is against
-the same algebra: the encoder's spatial embedding is folded into the input
-gates (``models/generator.py:_encode``) and the decoder's embedding and
-hidden2pos into one recurrent matrix (``_decode_folded``).
+Torch gate order (i, f, g, o), weights ``[in, 4H]`` / ``[H, 4H]`` as in the
+JAX package. Two routes compute every recurrence, chosen by ``impl``
+(:func:`select_impl` resolves it from ``TrainConfig.lstm_impl``):
 
-Each recurrence is a ``torch.autograd.Function`` with the JAX package's
-backward algebra: the forward saves only the per-step ``(h_prev, c_prev)``
-(and the inputs), the reverse loop recomputes the gates from them and
-accumulates every weight gradient as it goes, so no ``[T, B, 4H]`` gate
-slab is ever kept. When no argument needs a gradient (``torch.no_grad()``:
-the best-of-k probe decode, the d-step's generator forward, serving) the
-plain loop runs and nothing is saved. These function boundaries are where
-the whole-loop kernels (K3/K4) will slot in.
+- ``'scan'`` (the default, and what ``'auto'`` resolves to): plain Python
+  loops over time with fused-gate matmuls, in the folded forms the JAX scan
+  path runs — the encoder's spatial embedding folded into the input gates
+  (:func:`encoder_recurrence`) and the decoder's embedding and hidden2pos
+  into one recurrent matrix (:func:`decoder_first_step`,
+  :func:`decoder_proj_recurrence`). Each is a ``torch.autograd.Function``
+  with the JAX package's backward algebra: the forward saves only the
+  per-step ``(h_prev, c_prev)`` (and the inputs), the reverse loop
+  recomputes the gates from them and accumulates every weight gradient as
+  it goes, so no ``[T, B, 4H]`` gate slab is ever kept. When no argument
+  needs a gradient (``torch.no_grad()``: the best-of-k probe decode, the
+  d-step's generator forward, serving) the plain loop runs and nothing is
+  saved.
+- ``'fused'``: the whole time loop in one kernel launch
+  (:mod:`grouptraj_torch.ops.cuda_lstm`: K3 forward, K4 backward, the
+  counterpart of ``grouptraj/ops/pallas_fused.py``). :func:`lstm_scan`
+  forms ``gx = xs @ w_ih + b`` with one matmul and hands the recurrent half
+  to the kernel; the folded decoder hands it ``(w_eff, b_eff, h1, c1)``.
+  On CUDA tensors the kernels always run; on CPU tensors their plain
+  versions below do (:func:`lstm_recurrence_fused_plain`,
+  :func:`decoder_recurrence_fused_plain`, :func:`fused_recurrence_bwd_plain`
+  — the backward from SAVED post-activation gates and cell states, as the
+  kernels do it, not from a recomputed z).
+
+``'pallas'`` (the per-timestep kernels K5/K6 of
+``grouptraj/ops/pallas_lstm.py``) is not ported and raises.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -199,3 +214,173 @@ def decoder_proj_recurrence(w_eff, b_eff, w_p, b_p, h1, c1, T: int
     if _wants_grad(w_eff, b_eff, w_p, b_p, h1, c1):
         return _DecoderProjRecurrence.apply(w_eff, b_eff, w_p, b_p, h1, c1, T)
     return _proj_loop(w_eff, b_eff, w_p, b_p, h1, c1, T, None)
+
+
+# ------------------------------------------------ recurrence over given gx
+
+def _recurrence_loop(w_hh, gx, h, c, keep):
+    H = w_hh.shape[0]
+    ys = []
+    for g in gx:
+        if keep is not None:
+            keep.append((h, c))
+        h, c = lstm_gates(g + h @ w_hh, c, H)
+        ys.append(h)
+    return torch.stack(ys), h, c
+
+
+class _LstmRecurrence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_hh, gx, h0, c0):
+        keep = []
+        out = _recurrence_loop(w_hh, gx, h0, c0, keep)
+        ctx.save_for_backward(w_hh, gx, *[h for h, _ in keep],
+                              *[c for _, c in keep])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dys, dh, dc):
+        w_hh, gx, *states = ctx.saved_tensors
+        T, H = gx.shape[0], w_hh.shape[0]
+        hs, cs = states[:T], states[T:]
+        dw = torch.zeros_like(w_hh)
+        dgx = torch.empty_like(gx)
+        for t in reversed(range(T)):
+            z = gx[t] + hs[t] @ w_hh                      # recompute
+            dz, dc, _ = _gates_bwd(z, cs[t], dh + dys[t], dc, H)
+            dh = dz @ w_hh.t()
+            dw += hs[t].t() @ dz
+            dgx[t] = dz
+        return dw, dgx, dh, dc
+
+
+def lstm_recurrence(w_hh: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor,
+                    c0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Recurrent half of an LSTM with precomputed input gates, the scan
+    route: gx [T, B, 4H] already holds ``x_t @ W_ih + b`` ->
+    (ys [T, B, H], hT, cT)."""
+    if _wants_grad(w_hh, gx, h0, c0):
+        return _LstmRecurrence.apply(w_hh, gx, h0, c0)
+    return _recurrence_loop(w_hh, gx, h0, c0, None)
+
+
+_NO_PALLAS = ("lstm_impl='pallas' is not ported yet: the per-timestep LSTM "
+              "kernels K5/K6 (grouptraj/ops/pallas_lstm.py _fwd_kernel / "
+              "_bwd_kernel) have no CUDA counterpart; use 'scan' or 'fused'")
+
+
+def select_impl(cfg, tcfg) -> str:
+    """The LSTM route of a training run from ``TrainConfig``: ``'scan'``
+    and ``'fused'`` are honoured, ``'auto'`` resolves to ``'scan'`` (as in
+    the JAX package), and ``'pallas'`` (or ``use_pallas``) raises: its
+    kernels are not ported."""
+    impl = getattr(tcfg, "lstm_impl", "auto")
+    if getattr(tcfg, "use_pallas", False):
+        impl = "pallas"
+    if impl == "pallas":
+        raise NotImplementedError(_NO_PALLAS)
+    return impl if impl in ("scan", "fused") else "scan"
+
+
+def lstm_scan(params: dict, xs: torch.Tensor,
+              h0: Optional[torch.Tensor] = None,
+              c0: Optional[torch.Tensor] = None, impl: str = "scan"
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run the LSTM over time. xs [T, B, in] -> (ys [T, B, H], (hT, cT)),
+    zero initial state by default. The input-gate products of ALL steps are
+    one ``[T·B, in] @ [in, 4H]`` matmul on either route; ``impl='fused'``
+    runs the recurrent half in the whole-loop kernel."""
+    if impl == "pallas":
+        raise NotImplementedError(_NO_PALLAS)
+    if impl not in ("scan", "fused"):
+        raise ValueError(f"impl must be 'scan' or 'fused', got {impl!r}")
+    B, H = xs.shape[1], params["w_hh"].shape[0]
+    if h0 is None:
+        h0 = xs.new_zeros((B, H))
+    if c0 is None:
+        c0 = xs.new_zeros((B, H))
+    gx = xs @ params["w_ih"] + (params["b_ih"] + params["b_hh"])
+    if impl == "fused":
+        from grouptraj_torch.ops.cuda_lstm import lstm_recurrence_fused
+        return lstm_recurrence_fused(params["w_hh"], gx, h0, c0)
+    ys, hT, cT = lstm_recurrence(params["w_hh"], gx, h0, c0)
+    return ys, (hT, cT)
+
+
+# ------------------------------- plain versions of the whole-loop kernels
+
+def _fused_fwd_plain(w, gx, b, h, c, T, save):
+    H = w.shape[0]
+    ys, gates, cs = [], [], []
+    for t in range(T):
+        z = (gx[t] if gx is not None else b) + h @ w
+        i, f, g, o = _gate_acts(z, H)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        if save:
+            gates.append(torch.cat([i, f, g, o], dim=-1))
+            cs.append(c)
+    if save:
+        return torch.stack(ys), h, c, torch.stack(gates), torch.stack(cs)
+    return torch.stack(ys), h, c, None, None
+
+
+def lstm_recurrence_fused_plain(w_hh: torch.Tensor, gx: torch.Tensor,
+                                h0: torch.Tensor, c0: torch.Tensor,
+                                save: bool = False):
+    """Plain version of kernel K3, gx variant: ``z_t = gx_t + h_{t-1} @
+    w_hh`` over gx [T, B, 4H] -> (ys [T, B, H], hT, cT, gates, cs); with
+    ``save`` the residuals of the backward — the post-activation gates
+    [T, B, 4H] and the cell states cs [T, B, H] — else None for both."""
+    return _fused_fwd_plain(w_hh, gx, None, h0, c0, gx.shape[0], save)
+
+
+def decoder_recurrence_fused_plain(w_eff: torch.Tensor, b_eff: torch.Tensor,
+                                   h1: torch.Tensor, c1: torch.Tensor, T: int,
+                                   save: bool = False):
+    """Plain version of kernel K3, decoder variant: T steps of ``z_t =
+    h_{t-1} @ w_eff + b_eff`` from (h1, c1) -> (ys [T, B, H], hT, cT,
+    gates, cs), the residuals as in :func:`lstm_recurrence_fused_plain`."""
+    return _fused_fwd_plain(w_eff, None, b_eff, h1, c1, T, save)
+
+
+def fused_recurrence_bwd_plain(w: torch.Tensor, h0: torch.Tensor,
+                               c0: torch.Tensor, ys: torch.Tensor,
+                               gates: torch.Tensor, cs: torch.Tensor,
+                               dys: Optional[torch.Tensor],
+                               dhT: Optional[torch.Tensor],
+                               dcT: Optional[torch.Tensor], with_gx: bool):
+    """Plain version of kernel K4: back-propagation through time from the
+    forward's saved post-activation gates and cell states (nothing is
+    recomputed from z), previous states read by index (``ys[t-1]``,
+    ``cs[t-1]``; h0, c0 at t = 0). A cotangent that is None counts as zero.
+    -> (dgx [T, B, 4H] or None, dw [H, 4H], db [4H] or None, dh0, dc0):
+    dgx for the gx variant (``with_gx``), db for the decoder variant."""
+    T, _, H = ys.shape
+    dh = torch.zeros_like(h0) if dhT is None else dhT
+    dc = torch.zeros_like(c0) if dcT is None else dcT
+    dw = torch.zeros_like(w)
+    db = None if with_gx else w.new_zeros(4 * H)
+    dgx = torch.empty_like(gates) if with_gx else None
+    for t in reversed(range(T)):
+        i, f, g, o = gates[t].split(H, dim=-1)
+        c_prev = cs[t - 1] if t else c0
+        h_prev = ys[t - 1] if t else h0
+        if dys is not None:
+            dh = dh + dys[t]
+        tc = torch.tanh(f * c_prev + i * g)
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dz = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)],
+                       dim=-1)
+        dh = dz @ w.t()
+        dc = dc * f
+        dw += h_prev.t() @ dz
+        if with_gx:
+            dgx[t] = dz
+        else:
+            db += dz.sum(dim=0)
+    return dgx, dw, db, dh, dc

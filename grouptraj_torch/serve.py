@@ -98,17 +98,14 @@ class Predictor:
                                  else None, noises)
         return out[0]
 
-    @torch.inference_mode()
-    def predict_batch(self, scenes: Sequence[np.ndarray],
-                      groups: Optional[Sequence[np.ndarray]] = None,
-                      noises: Optional[torch.Tensor] = None) -> list:
-        """Scenes of any sizes -> one [num_samples, n_i, pred_len, 2] array
-        each. ``noises`` ([num_samples, S_pad, N_pad, noise_dim], optional)
-        replaces the draws from the predictor's generator — the padded
-        shape is (``_s_bucket(len(scenes))``, ``_bucket(max n_i)``)."""
+    def pad_batch(self, scenes: Sequence[np.ndarray],
+                  groups: Optional[Sequence[np.ndarray]] = None):
+        """Scenes of any sizes, padded to their bucket and put on the
+        device -> (obs, obs_rel, group, valid): [S, N, obs_len, 2] twice and
+        [S, N] twice, with S = ``_s_bucket(len(scenes))`` and
+        N = ``_bucket(max n_i)``."""
         To = self.cfg.obs_len
-        S_real = len(scenes)
-        S = self._s_bucket(S_real)
+        S = self._s_bucket(len(scenes))
         N = self._bucket(max(s.shape[0] for s in scenes))
         obs = np.zeros((S, N, To, 2), np.float32)
         grp = np.zeros((S, N), np.float32)
@@ -125,15 +122,24 @@ class Predictor:
         obs_rel = np.zeros_like(obs)
         obs_rel[:, :, 1:] = obs[:, :, 1:] - obs[:, :, :-1]
         obs_rel *= valid[..., None, None]
+        return tuple(torch.from_numpy(x).to(self.device)
+                     for x in (obs, obs_rel, grp, valid))
 
-        dev = self.device
-        obs_t, rel_t, grp_t, valid_t = (torch.from_numpy(x).to(dev)
-                                        for x in (obs, obs_rel, grp, valid))
+    @torch.inference_mode()
+    def predict_batch(self, scenes: Sequence[np.ndarray],
+                      groups: Optional[Sequence[np.ndarray]] = None,
+                      noises: Optional[torch.Tensor] = None) -> list:
+        """Scenes of any sizes -> one [num_samples, n_i, pred_len, 2] array
+        each. ``noises`` ([num_samples, S_pad, N_pad, noise_dim], optional)
+        replaces the draws from the predictor's generator — the padded
+        shape is that of :meth:`pad_batch`."""
+        obs_t, rel_t, grp_t, valid_t = self.pad_batch(scenes, groups)
         if noises is not None:
-            noises = torch.as_tensor(noises, dtype=torch.float32, device=dev)
+            noises = torch.as_tensor(noises, dtype=torch.float32,
+                                     device=self.device)
         ctx = self.model.generator_context(obs_t, rel_t, grp_t, valid_t)
         preds = self.model.generator_sample_many(
             ctx, rel_t, valid_t, self.num_samples, self._gen,
             user_noises=noises)                            # [k, S, N, Tp, 2]
         preds = relative_to_abs(preds, obs_t[None, :, :, -1, :]).cpu().numpy()
-        return [preds[:, i, :scenes[i].shape[0]] for i in range(S_real)]
+        return [preds[:, i, :s.shape[0]] for i, s in enumerate(scenes)]

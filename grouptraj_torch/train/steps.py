@@ -12,7 +12,10 @@
   ``torch.nn.utils.clip_grad_norm_`` does (it divides by ``norm + 1e-6``);
 - every random draw can be injected: the sample noise and the U(0.7, 1.2)
   label-smoothing scalar. Without an injected value a step draws from the
-  ``torch.Generator`` it is given.
+  ``torch.Generator`` it is given;
+- every step takes ``impl``, the LSTM route of all its recurrences
+  (``ops/lstm.py``: ``'scan'`` or ``'fused'``, the whole-loop kernels);
+  left None it is ``select_impl(cfg, tcfg)``, i.e. ``tcfg.lstm_impl``.
 
 A step mutates the models and optimizers of its :class:`TrainState` in
 place and returns the losses as device tensors under the JAX package's
@@ -35,6 +38,7 @@ from grouptraj_torch.models.generator import (
     LSTMWeights, TrajectoryGenerator, sample_noises,
 )
 from grouptraj_torch.models.modules import GATLayer
+from grouptraj_torch.ops.lstm import select_impl
 from grouptraj_torch.train.device_data import gather_batch
 from grouptraj_torch.utils import relative_to_abs, resolve_device
 
@@ -163,12 +167,12 @@ def _check_trainable(cfg: ModelConfig) -> None:
 
 def d_step(state: TrainState, batch: Batch, cfg: ModelConfig,
            tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-           noise: Optional[torch.Tensor] = None, label: Label = None
-           ) -> Dict[str, torch.Tensor]:
+           noise: Optional[torch.Tensor] = None, label: Label = None,
+           impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Discriminator step (reference ``train.py:395-429``): the loss and
     gradients of :func:`d_gradients`, then clip and Adam on D."""
     losses, grads = d_gradients(state, batch, cfg, tcfg, generator, noise,
-                                label)
+                                label, impl)
     losses["norm_d"] = _apply(state.d_opt, list(state.d.parameters()), grads,
                               tcfg.clipping_threshold_d)
     return losses
@@ -177,12 +181,14 @@ def d_step(state: TrainState, batch: Batch, cfg: ModelConfig,
 def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, label: Label = None):
+                noise: Optional[torch.Tensor] = None, label: Label = None,
+                impl: Optional[str] = None):
     """The d-step's losses and the gradient of each of D's parameters (in
     ``state.d.parameters()`` order), nothing updated. ``noise``
     ``[S, N, noise_dim]`` and ``label`` (the U(0.7, 1.2) scalar) replace
     the draws from ``generator``."""
     _check_trainable(cfg)
+    impl = select_impl(cfg, tcfg) if impl is None else impl
     b = batch
     S = b["valid"].shape[0]
     dev = b["valid"].device
@@ -192,22 +198,22 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
         # feeds the pool kernel; the decode is where the rows are) on the
         # same float32-drawn noise
         ctx = state.g.generator_context(b["obs"], b["obs_rel"], b["group"],
-                                        b["valid"])
+                                        b["valid"], impl)
         if noise is None and cfg.noise_first_dim:
             noise = sample_noises(cfg, 1, *b["valid"].shape, generator,
                                   dev)[0]
         if tcfg.bf16_nograd:
             pred_rel_fake = state.g.generator_sample(
                 ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"],
-                user_noise=noise).float()
+                user_noise=noise, impl=impl).float()
         else:
             pred_rel_fake = state.g.generator_sample(
-                ctx, b["obs_rel"], b["valid"], user_noise=noise)
+                ctx, b["obs_rel"], b["valid"], user_noise=noise, impl=impl)
     tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
     # real and fake scored in ONE stacked forward: scenes are independent
     # rows, so this halves the discriminator's sequential depth
     scores = state.d(torch.cat([tr, tf], dim=0), torch.cat([trr, tfr], dim=0),
-                     torch.cat([b["valid"], b["valid"]], dim=0))
+                     torch.cat([b["valid"], b["valid"]], dim=0), impl)
     data_loss = L.gan_d_loss(scores[:S], scores[S:],
                              _label(label, generator, dev), b["valid"])
     grads = torch.autograd.grad(data_loss, list(state.d.parameters()))
@@ -217,13 +223,13 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
 
 def g_step(state: TrainState, batch: Batch, cfg: ModelConfig,
            tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-           noises: Optional[torch.Tensor] = None, label: Label = None
-           ) -> Dict[str, torch.Tensor]:
+           noises: Optional[torch.Tensor] = None, label: Label = None,
+           impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Generator step (reference ``train.py:432-484``): the losses and
     gradients of :func:`g_gradients`, then clip and Adam on G, then the
     EMA when ``g_ema_decay > 0``."""
     losses, grads = g_gradients(state, batch, cfg, tcfg, generator, noises,
-                                label)
+                                label, impl)
     losses["norm_g"] = _apply(state.g_opt, list(state.g.parameters()), grads,
                               tcfg.clipping_threshold_g)
     if state.ema_g is not None and tcfg.g_ema_decay > 0:
@@ -237,7 +243,8 @@ def g_step(state: TrainState, batch: Batch, cfg: ModelConfig,
 def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig,
                 generator: Optional[torch.Generator] = None,
-                noises: Optional[torch.Tensor] = None, label: Label = None):
+                noises: Optional[torch.Tensor] = None, label: Label = None,
+                impl: Optional[str] = None):
     """The g-step's losses (best-of-k variety + adversarial) and the
     gradient of each of G's parameters (in ``state.g.parameters()`` order),
     nothing updated. ``noises`` ``[best_k, S, N, noise_dim]`` and ``label``
@@ -251,6 +258,7 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     gradients equal the dense path's except at exact per-scene ties. The
     dense path decodes all k with grad."""
     _check_trainable(cfg)
+    impl = select_impl(cfg, tcfg) if impl is None else impl
     b, g = batch, state.g
     k = tcfg.best_k
     S, N = b["valid"].shape
@@ -258,7 +266,8 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
     sparse = tcfg.sparse_best_k and tcfg.l2_loss_weight > 0 and k > 1
 
-    ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"], b["valid"])
+    ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"], b["valid"],
+                              impl)
     if noises is None and cfg.noise_first_dim:
         noises = sample_noises(cfg, k, S, N, generator, dev)
     if sparse:
@@ -266,10 +275,11 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
             if tcfg.bf16_nograd:
                 preds_all = g.generator_sample_many(
                     ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"], k,
-                    user_noises=noises).float()
+                    user_noises=noises, impl=impl).float()
             else:
                 preds_all = g.generator_sample_many(
-                    ctx, b["obs_rel"], b["valid"], k, user_noises=noises)
+                    ctx, b["obs_rel"], b["valid"], k, user_noises=noises,
+                    impl=impl)
             per_scene, denom = L.variety_l2_parts(
                 preds_all, b["pred_rel"], pred_loss_mask, b["valid"],
                 tcfg.l2_loss_weight)
@@ -280,21 +290,22 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
             z2 = torch.cat([noises[k_star, torch.arange(S, device=dev)],
                             noises[-1]], dim=0)
         preds2 = g.generator_sample(cat2(ctx), cat2(b["obs_rel"]),
-                                    cat2(b["valid"]), user_noise=z2)
+                                    cat2(b["valid"]), user_noise=z2,
+                                    impl=impl)
         pred_sel, pred_last = preds2[:S], preds2[S:]
         variety = L.variety_from_scene_l2(
             L.variety_scene_l2(pred_sel, b["pred_rel"], pred_loss_mask,
                                b["valid"], tcfg.l2_loss_weight), denom)
     else:
         preds = g.generator_sample_many(ctx, b["obs_rel"], b["valid"], k,
-                                        user_noises=noises)
+                                        user_noises=noises, impl=impl)
         variety = L.variety_l2_loss(
             preds, b["pred_rel"], pred_loss_mask, b["valid"],
             tcfg.l2_loss_weight) if tcfg.l2_loss_weight > 0 \
             else ctx.new_zeros(())
         pred_last = preds[-1]
     _, _, tf, tfr = _trajs(b, pred_last)
-    adv = L.gan_g_loss(state.d(tf, tfr, b["valid"]),
+    adv = L.gan_g_loss(state.d(tf, tfr, b["valid"], impl),
                        _label(label, generator, dev), b["valid"])
     total = variety + adv
 
@@ -309,8 +320,8 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
 def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
                      idx: torch.Tensor, cfg: ModelConfig, tcfg: TrainConfig,
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[Sequence[dict]] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     draws: Optional[Sequence[dict]] = None,
+                     impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Training iterations over a device-resident dataset: ``idx``
     ``[iterations, d_steps + g_steps, S]`` integer scene indices on the
     device; each iteration gathers its batches there and alternates the
@@ -322,6 +333,7 @@ def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
     with one ``dict(noise=, label=)`` per d-step and one
     ``dict(noises=, label=)`` per g-step — the injected randomness; else
     every draw comes from ``generator``."""
+    impl = select_impl(cfg, tcfg) if impl is None else impl
     history: List[Dict[str, torch.Tensor]] = []
     for it, bidx in enumerate(idx):
         losses: Dict[str, torch.Tensor] = {}
@@ -329,11 +341,12 @@ def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
             kw = draws[it]["d"][j] if draws is not None else {}
             losses.update(d_step(state, gather_batch(data, bidx[j],
                                                      cfg.obs_len),
-                                 cfg, tcfg, generator, **kw))
+                                 cfg, tcfg, generator, impl=impl, **kw))
         for j in range(tcfg.g_steps):
             kw = draws[it]["g"][j] if draws is not None else {}
             losses.update(g_step(
                 state, gather_batch(data, bidx[tcfg.d_steps + j],
-                                    cfg.obs_len), cfg, tcfg, generator, **kw))
+                                    cfg.obs_len), cfg, tcfg, generator,
+                impl=impl, **kw))
         history.append(losses)
     return {k: torch.stack([h[k] for h in history]) for k in history[0]}

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: K1 (csrc/pool_core_fwd.cu) and K2
 (csrc/pool_core_bwd.cu) against their plain PyTorch versions, the
-Predictor's kernel path against its plain-pool path, and one training
-iteration through both kernels against the plain pool. Marked ``cuda``;
-each test skips without a CUDA device.
+Predictor's kernel path against its plain-pool path, one training
+iteration through both kernels against the plain pool; K3
+(csrc/lstm_fused_fwd.cu) and K4 (csrc/lstm_fused_bwd.cu) against their
+plain versions, and a training iteration with ``lstm_impl='fused'`` against
+``'scan'``. Marked ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -12,7 +14,9 @@ order); ``cnt`` exact (ties come from equal inputs); positions 1e-3 m
 (the pool's rounding carried through the GAT and 12 decoder steps); K2's
 da/du 1e-5 and dW2/db2 1e-4 relative to the largest reference entry, given
 the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
-training iteration's losses 1e-4 relative.
+training iteration's losses 1e-4 relative; K3's outputs 1e-5 absolute and
+K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 48
+products in another order, accurate expf/tanhf on both sides).
 """
 
 import dataclasses
@@ -164,6 +168,116 @@ def test_training_iteration_goes_through_both_kernels(cuda):
                            generator=torch.Generator(cuda).manual_seed(0))
     assert (pool_core_fwd.launches, pool_core_bwd.launches) == (fwd + 4,
                                                                 bwd + 3)
+    for k, v in out.items():
+        assert torch.isfinite(v).all()
+        assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k
+
+
+# ------------------------------------------------ K3 / K4, the fused LSTM
+
+def _lstm_case(cuda, T, B, H, with_gx, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    w, h0, c0 = r(H, 4 * H) * 0.3, r(B, H), r(B, H)
+    gx = r(T, B, 4 * H) if with_gx else None
+    b = None if with_gx else r(4 * H) * 0.1
+    return w, h0, c0, gx, b, (r(T, B, H), r(B, H), r(B, H))
+
+
+@pytest.mark.parametrize("T,B,H,with_gx", [
+    (8, 100, 32, True), (5, 9, 8, True), (20, 40, 48, True),
+    (11, 70, 32, False), (7, 9, 16, False), (1, 1, 32, True),
+    (3, 33, 64, False)])
+def test_fused_forward_kernel_matches_plain(cuda, T, B, H, with_gx):
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import _fused_fwd_plain
+    w, h0, c0, gx, b, _ = _lstm_case(cuda, T, B, H, with_gx, seed=T + B)
+    for save in (False, True):
+        before = lstm_fused_fwd.launches
+        out = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save)
+        assert lstm_fused_fwd.launches == before + 1
+        ref = _fused_fwd_plain(w, gx, b, h0, c0, T, save)
+        torch.cuda.synchronize()
+        assert (out[3] is None) == (out[4] is None) == (not save)
+        for x, y in zip(out, ref):
+            if x is not None:
+                assert (x - y).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("T,B,H,with_gx", [
+    (8, 50, 32, True), (6, 16, 16, True), (20, 40, 48, True),
+    (11, 24, 32, False), (7, 9, 8, False), (1, 1, 48, True)])
+def test_fused_backward_kernel_matches_plain(cuda, T, B, H, with_gx):
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import fused_recurrence_bwd_plain
+    w, h0, c0, gx, b, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H, with_gx,
+                                                   seed=T * B)
+    ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
+                                         save=True)
+    cots = [(dys, dhT, dcT), (None, dhT, None)] if with_gx \
+        else [(dys, None, None)]
+    for cot in cots:
+        before = lstm_fused_bwd.launches
+        got = lstm_fused_bwd(w, h0, c0, ys, gates, cs, *cot, with_gx)
+        assert lstm_fused_bwd.launches == before + 1
+        ref = fused_recurrence_bwd_plain(w, h0, c0, ys, gates, cs, *cot,
+                                         with_gx)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert (x - y).abs().max().item() <= 1e-4 * max(
+                    y.abs().max().item(), 1e-30)
+
+
+def test_fused_functions_differentiate_through_the_kernels(cuda):
+    from grouptraj_torch.ops import cuda_lstm as CL
+    from grouptraj_torch.ops import lstm as TL
+    w, h0, c0, gx, _, _ = _lstm_case(cuda, 8, 70, 32, True, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (w, gx, h0, c0)]
+    fwd, bwd = CL.lstm_fused_fwd.launches, CL.lstm_fused_bwd.launches
+    ys, (hT, cT) = CL.lstm_recurrence_fused(*leaves)
+    got = torch.autograd.grad((ys ** 2).sum() + (hT * cT).sum(), leaves)
+    assert (CL.lstm_fused_fwd.launches, CL.lstm_fused_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    ref_leaves = [t.clone().requires_grad_() for t in (w, gx, h0, c0)]
+    ys, hT, cT, _, _ = TL.lstm_recurrence_fused_plain(*ref_leaves)
+    ref = torch.autograd.grad((ys ** 2).sum() + (hT * cT).sum(), ref_leaves)
+    for x, y in zip(got, ref):
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    with pytest.raises(ValueError):
+        CL.lstm_fused_fwd(torch.zeros(12, 48, device=cuda),
+                          torch.zeros(3, 12, device=cuda),
+                          torch.zeros(3, 12, device=cuda),
+                          b=torch.zeros(48, device=cuda), T=2)
+
+
+def test_fused_training_iteration_matches_scan(cuda):
+    import copy
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import (
+        init_train_state, train_iterations, train_state_from_modules,
+    )
+    cfg = ModelConfig()
+    fused = dataclasses.replace(TrainConfig(), best_k=4, bf16_nograd=False,
+                                lstm_impl="fused")
+    scan = dataclasses.replace(fused, lstm_impl="scan")
+    state = init_train_state(cfg, fused, device=cuda)
+    ref_state = train_state_from_modules(copy.deepcopy(state.g),
+                                         copy.deepcopy(state.d), scan)
+    data = synthetic_device_data(32, 16, device=cuda)
+    idx = torch.arange(16, device=cuda).reshape(1, 2, 8)
+    fwd, bwd = lstm_fused_fwd.launches, lstm_fused_bwd.launches
+    out = train_iterations(state, data, idx, cfg, fused,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert (lstm_fused_fwd.launches, lstm_fused_bwd.launches) == (fwd + 7,
+                                                                  bwd + 4)
+    ref = train_iterations(ref_state, data, idx, cfg, scan,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert (lstm_fused_fwd.launches, lstm_fused_bwd.launches) == (fwd + 7,
+                                                                  bwd + 4)
     for k, v in out.items():
         assert torch.isfinite(v).all()
         assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k
