@@ -22,6 +22,15 @@ Phases, each of which fails the run on any error:
    B=81,920 without) and at odd sizes (B=1, B=70, T=1, H=8, 16 and 64, all
    cotangents non-zero or only dhT); times beside the bound, and
    torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the encoder shapes;
+   then K5 (the LSTM with its input projection in the kernel,
+   csrc/lstm_proj_fwd.cu) and K6 (its backward, csrc/lstm_proj_bwd.cu)
+   against their plain versions at the encoders' full-width shapes
+   (generator T=8/B=4,096/D=16/H=32 with residuals and, as served, without;
+   discriminator T=20/D=16/H=48 at B=8,192 and 4,096, a cotangent on hT
+   only) and at odd sizes (B=1, B=70, T=1, D=4 and 8, H=8, 16 and 64, all
+   cotangents non-zero or only dhT), non-zero initial states throughout;
+   times beside the bound, and torch.nn.LSTM's forward and forward +
+   backward beside K5 and K5 + K6 at the encoder shapes;
 4. serve: the zoo checkpoint zara1_12 (the ``gat`` preset at full width)
    served at k=20 through Predictor.predict_batch on realistic scenes at
    the (S=64, N=64) and (S=256, N=16) buckets, with the launch counts of
@@ -29,22 +38,24 @@ Phases, each of which fails the run on any error:
    port on the CPU on a small batch, the default bf16 predictor, and
    serving throughput per bucket; then the same generator through
    generator_context + generator_sample_many with impl='fused' (K3 for the
-   encoder and the decoder) against impl='scan': positions and ms per call
-   of both routes, in turns;
+   encoder and the decoder) and with impl='pallas' (K5 for the encoder)
+   against impl='scan': positions and ms per call of the three routes, in
+   turns;
 5. profile: torch.profiler over three bf16 calls at S=64, N=64 — device
    busy share and time by kernel (table in chiprun_out/profile_serve.txt);
 6. train: ModelConfig()/TrainConfig() at full width (batch 64, best_k=20)
    from a seeded state on synthetic device-resident data: one iteration's
    losses and every parameter gradient with the kernels against the plain
-   pool core, and on a small batch against the port on the CPU; then 30
-   one iteration with lstm_impl='fused' (K3 x7, K4 x4) against 'scan' and
-   against the fused route on the kernels' plain versions; then
-   train_iterations at (S=64, N=64) and (S=64, N=16) on both routes in
-   turns (scan 10 iterations, fused 30, fused 30, scan 10, each from the
-   same state) with the launch counts of each run, iterations per second
-   and ms per d-step and g-step; then torch.profiler over three iterations
-   of each route (tables in chiprun_out/profile_train.txt and
-   profile_train_fused.txt).
+   pool core, and on a small batch against the port on the CPU; then
+   one iteration with lstm_impl='fused' (K3 x7, K4 x4) and one with
+   lstm_impl='pallas' (K5 x4, K6 x3) against 'scan' and against the same
+   route on the kernels' plain versions; then train_iterations at (S=64,
+   N=64) and (S=64, N=16) on the three routes in turns (scan, fused,
+   pallas, pallas, fused, scan, each from the same state; TRAIN_ITERS
+   iterations a run) with the launch counts of each run, iterations per
+   second and ms per d-step and g-step; then torch.profiler over three
+   iterations of each route (tables in chiprun_out/profile_train.txt,
+   profile_train_fused.txt and profile_train_pallas.txt).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -69,14 +80,16 @@ POOL_ATOL = 1e-4             # kernel vs plain, pooled (see check_kernel)
 BWD_RTOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}  # check_bwd
 SERVE_ATOL = 1e-3            # metres, kernel vs plain pool end to end
 # device functions of K1 (the first), K2 (the next four), K3 and K4 (two),
-# as a trace names them
+# K4's and K6's block-order sum, K5 and K6, as a trace names them
 PORT_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "rows_kernel",
                 "weight_partials_kernel", "weight_reduce_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
-                "reduce_partials_kernel")
-TRAIN_ITERS = {"scan": 10, "fused": 30}   # iterations of a training run
-LSTM_FWD_ATOL = 1e-5         # K3 vs plain: float32 sums of H <= 64 products
-LSTM_BWD_RTOL = 1e-4         # K4 vs plain, of each tensor's largest entry
+                "reduce_partials_kernel", "lstm_proj_fwd_kernel",
+                "lstm_proj_bwd_kernel")
+# iterations of a training run on each LSTM route
+TRAIN_ITERS = {"scan": 10, "fused": 30, "pallas": 20}
+LSTM_FWD_ATOL = 1e-5         # K3/K5 vs plain: float32 sums of <= 80 products
+LSTM_BWD_RTOL = 1e-4         # K4/K6 vs plain, of each tensor's largest entry
 # float32 operations per (step, row, unit) beside the matrix products: the
 # forward's 4 adds, 5 activations, 4 for c and h; the backward's tanh,
 # cell, carries and the four dz (each activation counted once)
@@ -465,81 +478,97 @@ def lstm_bound_ms(kind, T, B, H, with_gx, save=False, cot=(True, True, True)):
                                  else "bytes")
 
 
-def check_lstm(name, gen, T, B, H, with_gx, save=True, cot=(True, True, True),
-               timed=None):
-    """K3, then K4 on K3's residuals, against their plain versions on the
-    card. Forward outputs (ys, hT, cT, gates, cs) within LSTM_FWD_ATOL;
-    each gradient within LSTM_BWD_RTOL of its largest entry; all finite.
-    ``cot`` says which of (dys, dhT, dcT) are given (the decoder variant
-    takes dys only). With ``timed`` (a dict) the median kernel and plain
-    times and the bounds are stored under ``name``."""
+def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
+              bound, timed):
+    """A forward kernel, then its backward on the forward's residuals,
+    against their plain versions on the card. Forward outputs (ys, hT, cT,
+    gates, cs) within LSTM_FWD_ATOL; each gradient (named by ``keys``)
+    within LSTM_BWD_RTOL of its largest entry; all finite.
+    ``backward(out)`` gives the kernel and plain backward calls on the
+    forward's outputs, ``cot`` which of (dys, dhT, dcT) they are given,
+    ``bound(kind)`` the least time of 'fwd' or 'bwd'. With ``timed`` (a
+    dict) the median kernel and plain times and the bounds are stored
+    under ``name``."""
     import torch
-    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
-    from grouptraj_torch.ops.lstm import (
-        _fused_fwd_plain, fused_recurrence_bwd_plain,
-    )
-    w, h0, c0, gx, b, cots = lstm_inputs(gen, T, B, H, with_gx)
-    fwd = lambda: lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save)
-    plain_fwd = lambda: _fused_fwd_plain(w, gx, b, h0, c0, T, save)
     out, ref = fwd(), plain_fwd()
     torch.cuda.synchronize()
     if (out[3] is None) != (not save) or (out[4] is None) != (not save):
-        fail(f"lstm case {name}: residuals do not follow the save flag")
+        fail(f"{label} case {name}: residuals do not follow the save flag")
     ferr = max((x - y).abs().max().item() for x, y in zip(out, ref)
                if x is not None)
     ok = ferr <= LSTM_FWD_ATOL and all(bool(torch.isfinite(x).all())
                                        for x in out if x is not None)
-    msg = (f"kernel lstm {name}: T={T} B={B} H={H} "
-           f"{'gx' if with_gx else 'decoder'} variant, residuals "
+    msg = (f"kernel {label} {name}: {desc}, residuals "
            f"{'saved' if save else 'not saved'}: fwd max_abs_err={ferr:.3e}")
+    calls = {"fwd": (fwd, plain_fwd)}
     berr = brel = 0.0
     if save:
-        ys, _, _, gates, cs = out
-        cot = cot if with_gx else (True, False, False)
-        given = [c if use else None for c, use in zip(cots, cot)]
-        bwd = lambda: lstm_fused_bwd(w, h0, c0, ys, gates, cs, *given,
-                                     with_gx)
-        plain_bwd = lambda: fused_recurrence_bwd_plain(
-            w, h0, c0, ys, gates, cs, *given, with_gx)
-        got, want = bwd(), plain_bwd()
+        calls["bwd"] = backward(out)
+        got, want = (call() for call in calls["bwd"])
         torch.cuda.synchronize()
-        for key, x, y in zip(("dgx", "dw", "db", "dh0", "dc0"), got, want):
+        for key, x, y in zip(keys, got, want):
             if (x is None) != (y is None):
-                fail(f"lstm case {name}: {key} given by one side only")
+                fail(f"{label} case {name}: {key} given by one side only")
             if x is None:
                 continue
             err = (x - y).abs().max().item()
             rel = err / max(y.abs().max().item(), 1e-30)
             berr, brel = max(berr, err), max(brel, rel)
-            ok &= rel <= LSTM_BWD_RTOL and bool(torch.isfinite(x).all())
+            ok &= (x.shape == y.shape and rel <= LSTM_BWD_RTOL
+                   and bool(torch.isfinite(x).all()))
         msg += (f"; bwd cotangents (dys, dhT, dcT)={tuple(map(int, cot))} "
                 f"max_abs_err={berr:.3e} worst max|d|/max|ref|={brel:.3e}")
     print(msg)
     if not ok:
-        fail(f"lstm kernel case {name} disagrees with the plain version")
+        fail(f"{label} kernel case {name} disagrees with the plain version")
     if timed is not None:
-        entry = {}
-        bound, by = lstm_bound_ms("fwd", T, B, H, with_gx, save)
-        entry["fwd"] = dict(ms=time_ms(fwd), plain_ms=time_ms(
-            plain_fwd, reps=5, warmup=1), bound_ms=bound, bound_by=by)
-        if save:
-            bound, by = lstm_bound_ms("bwd", T, B, H, with_gx, cot=cot)
-            entry["bwd"] = dict(ms=time_ms(bwd), plain_ms=time_ms(
-                plain_bwd, reps=5, warmup=1), bound_ms=bound, bound_by=by)
-        timed[name] = entry
-        for kind, e in entry.items():
-            print(f"kernel lstm {name} {kind} time: kernel_ms={e['ms']:.4f} "
-                  f"plain_ms={e['plain_ms']:.4f} bound_ms="
+        timed[name] = {}
+        for kind, (kernel, plain) in calls.items():
+            b, by = bound(kind)
+            e = timed[name][kind] = dict(
+                ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
+                bound_ms=b, bound_by=by)
+            print(f"kernel {label} {name} {kind} time: kernel_ms="
+                  f"{e['ms']:.4f} plain_ms={e['plain_ms']:.4f} bound_ms="
                   f"{e['bound_ms']:.4f} ({e['bound_by']}) kernel/bound="
                   f"{e['ms'] / e['bound_ms']:.2f}")
     return ferr, berr
 
 
+def check_lstm(name, gen, T, B, H, with_gx, save=True, cot=(True, True, True),
+               timed=None):
+    """K3, then K4 on K3's residuals, against their plain versions on the
+    card (hold_pair). ``cot`` says which of (dys, dhT, dcT) are given (the
+    decoder variant takes dys only)."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import (
+        _fused_fwd_plain, fused_recurrence_bwd_plain,
+    )
+    w, h0, c0, gx, b, cots = lstm_inputs(gen, T, B, H, with_gx)
+    cot = cot if with_gx else (True, False, False)
+    given = [c if use else None for c, use in zip(cots, cot)]
+
+    def backward(out):
+        ys, _, _, gates, cs = out
+        args = (w, h0, c0, ys, gates, cs, *given, with_gx)
+        return (lambda: lstm_fused_bwd(*args),
+                lambda: fused_recurrence_bwd_plain(*args))
+
+    return hold_pair(
+        "lstm", name,
+        f"T={T} B={B} H={H} {'gx' if with_gx else 'decoder'} variant",
+        lambda: lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save),
+        lambda: _fused_fwd_plain(w, gx, b, h0, c0, T, save), save, backward,
+        ("dgx", "dw", "db", "dh0", "dc0"), cot,
+        lambda kind: lstm_bound_ms(kind, T, B, H, with_gx, save, cot), timed)
+
+
 def library_lstm(gen, name, T, B, D, H):
-    """torch.nn.LSTM (cuDNN, TF32 off), the nearest single PyTorch call,
-    beside the fused route at an encoder's shape, the input projection
-    included on both sides: forward without grad, and forward + backward
-    from a cotangent on hT. Timed here only; the port never calls it."""
+    """torch.nn.LSTM (cuDNN, TF32 off), the one PyTorch call that computes
+    what K5 (+ K6) compute, beside both kernel routes at an encoder's shape,
+    the input projection included everywhere: forward without grad, forward
+    with grad (what a training forward keeps), and forward + backward from a
+    cotangent on hT. Timed here only; the port never calls it."""
     import torch
     from grouptraj_torch.ops.lstm import lstm_scan
     lib = torch.nn.LSTM(D, H).cuda()
@@ -549,23 +578,34 @@ def library_lstm(gen, name, T, B, D, H):
                      requires_grad=True)
     leaves = list(lib.parameters()) + [xs]
     ones = torch.ones(B, H, device="cuda")
+    out = {}
     with torch.no_grad():
-        ref, ours = lib(xs)[1][0][0], lstm_scan(params, xs, impl="fused")[1][0]
-        err = (ref - ours).abs().max().item()
-        lib_fwd = time_ms(lambda: lib(xs))
-        our_fwd = time_ms(lambda: lstm_scan(params, xs, impl="fused"))
-    lib_fb = time_ms(lambda: torch.autograd.grad(lib(xs)[1][0][0], leaves,
-                                                 ones))
-    our_fb = time_ms(lambda: torch.autograd.grad(
-        lstm_scan(params, xs, impl="fused")[1][0], leaves, ones))
+        ref = lib(xs)[1][0][0]
+        errs = {impl: (ref - lstm_scan(params, xs, impl=impl)[1][0]).abs()
+                .max().item() for impl in ("fused", "pallas")}
+        out["library_fwd_ms"] = time_ms(lambda: lib(xs))
+        for impl in ("fused", "pallas"):
+            out[f"{impl}_route_fwd_ms"] = time_ms(
+                lambda: lstm_scan(params, xs, impl=impl))
+    out["library_fwd_train_ms"] = time_ms(lambda: lib(xs))
+    out["library_fwd_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(lib(xs)[1][0][0], leaves, ones))
+    for impl in ("fused", "pallas"):
+        out[f"{impl}_route_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(
+                lstm_scan(params, xs, impl=impl)[1][0], leaves, ones))
     print(f"library lstm {name}: T={T} B={B} D={D} H={H} nn.LSTM fwd "
-          f"{lib_fwd:.4f} ms, matmul+K3 fwd {our_fwd:.4f} ms; nn.LSTM "
-          f"fwd+bwd {lib_fb:.4f} ms, matmul+K3+K4 fwd+bwd {our_fb:.4f} ms; "
-          f"max |hT - hT_cudnn| = {err:.3e}")
-    if not err <= 1e-4:
-        fail(f"library lstm {name}: the fused route disagrees with nn.LSTM")
-    return dict(library_fwd_ms=lib_fwd, fused_route_fwd_ms=our_fwd,
-                library_fwd_bwd_ms=lib_fb, fused_route_fwd_bwd_ms=our_fb)
+          f"{out['library_fwd_ms']:.4f} ms (with grad "
+          f"{out['library_fwd_train_ms']:.4f}), matmul+K3 fwd "
+          f"{out['fused_route_fwd_ms']:.4f} ms, K5 fwd "
+          f"{out['pallas_route_fwd_ms']:.4f} ms; nn.LSTM fwd+bwd "
+          f"{out['library_fwd_bwd_ms']:.4f} ms, matmul+K3+K4 fwd+bwd "
+          f"{out['fused_route_fwd_bwd_ms']:.4f} ms, K5+K6 fwd+bwd "
+          f"{out['pallas_route_fwd_bwd_ms']:.4f} ms; max |hT - hT_cudnn| "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    if not max(errs.values()) <= 1e-4:
+        fail(f"library lstm {name}: a kernel route disagrees with nn.LSTM")
+    return out
 
 
 def lstm_kernel_phase():
@@ -606,6 +646,89 @@ def lstm_kernel_phase():
     return max(ferrs + [f]), max(berrs + [b]), timed, library
 
 
+def proj_bound_ms(kind, T, B, D, H, save=False, cot=(True, True, True)):
+    """Least time for K5 (``kind='fwd'``) or K6 (``'bwd'``) on these
+    shapes. Operations: the products 2*T*B*(D+H)*4H (twice that backward:
+    dz @ W_hh^T, h^T dz, dz @ W_ih^T, x^T dz) plus LSTM_GATE_OPS per (step,
+    row, unit), over the float32 peak. Bytes, each once over HBM bandwidth:
+    forward w_ih, w_hh, b, xs, h0, c0 read and ys, hT, cT (and gates, cs
+    when saved) written; backward w_ih, w_hh, xs, h0, c0, ys, gates, cs and
+    the cotangents given read, dxs, dw_ih, dw_hh, db, dh0, dc0 written."""
+    tbh, tbd, w = T * B * H, T * B * D, (D + H) * 4 * H
+    if kind == "fwd":
+        ops = 2 * T * B * w + LSTM_GATE_OPS["fwd"] * tbh
+        floats = (w + 4 * H + tbd + 4 * B * H + tbh
+                  + (5 * tbh if save else 0))
+    else:
+        ops = 4 * T * B * w + LSTM_GATE_OPS["bwd"] * tbh
+        floats = (2 * w + 4 * H + 2 * tbd + 4 * B * H + 6 * tbh
+                  + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H)
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_proj(name, gen, T, B, D, H, save=True, cot=(True, True, True),
+               timed=None):
+    """K5, then K6 on K5's residuals, against their plain versions on the
+    card (hold_pair), from a non-zero initial state. ``cot`` says which of
+    (dys, dhT, dcT) are given."""
+    import torch
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import (
+        lstm_proj_bwd_plain, lstm_proj_fwd_plain,
+    )
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    w_ih, w_hh = r(D, 4 * H) / H ** 0.5, r(H, 4 * H) / H ** 0.5
+    b, xs, h0, c0 = 0.1 * r(4 * H), r(T, B, D), 0.5 * r(B, H), 0.5 * r(B, H)
+    args = (w_ih, w_hh, b, xs, h0, c0)
+
+    def backward(out):
+        ys, _, _, gates, cs = out
+        given = [r(T, B, H) if cot[0] else None,
+                 r(B, H) if cot[1] else None, r(B, H) if cot[2] else None]
+        bargs = (w_ih, w_hh, xs, h0, c0, ys, gates, cs, *given)
+        return (lambda: lstm_proj_bwd(*bargs),
+                lambda: lstm_proj_bwd_plain(*bargs))
+
+    return hold_pair(
+        "proj", name, f"T={T} B={B} D={D} H={H}",
+        lambda: lstm_proj_fwd(*args, save=save),
+        lambda: lstm_proj_fwd_plain(*args, save=save), save, backward,
+        ("dxs", "dw_ih", "dw_hh", "db", "dh0", "dc0"), cot,
+        lambda kind: proj_bound_ms(kind, T, B, D, H, save, cot), timed)
+
+
+def proj_kernel_phase():
+    """K5 and K6 at the shapes the encoders give them on the main paths
+    (timed), then odd sizes. Returns the largest absolute errors and the
+    timings."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    timed, ferrs, berrs = {}, [], []
+    hT_only = (False, True, False)
+    main = [   # name, T, B, D, H, residuals
+        ("G_encoder_T8_B4096_D16_H32", 8, 4096, 16, 32, True),
+        ("G_encoder_T8_B4096_D16_H32_nograd", 8, 4096, 16, 32, False),
+        ("D_encoder_T20_B4096_D16_H48", 20, 4096, 16, 48, True),
+        ("D_encoder_T20_B8192_D16_H48", 20, 8192, 16, 48, True)]
+    for name, T, B, D, H, save in main:
+        f, b = check_proj(name, gen, T, B, D, H, save, hT_only, timed)
+        ferrs.append(f)
+        berrs.append(b)
+        torch.cuda.empty_cache()
+    odd = [("B1", 5, 1, 16, 32), ("B70", 8, 70, 16, 32), ("T1", 1, 33, 16, 48),
+           ("D4_H8", 5, 9, 4, 8), ("D8_H16", 6, 16, 8, 16),
+           ("D16_H64", 4, 40, 16, 64), ("D4_H64", 3, 40, 4, 64),
+           ("D8_H48_B70", 7, 70, 8, 48)]
+    for name, T, B, D, H in odd:             # dys, dhT and dcT all non-zero
+        f, b = check_proj(name, gen, T, B, D, H)
+        ferrs.append(f)
+        berrs.append(b)
+    f, b = check_proj("odd_hT_only", gen, 6, 50, 8, 32, cot=hT_only)
+    return max(ferrs + [f]), max(berrs + [b]), timed
+
+
 # ----------------------------------------------------------------- serve
 
 def serve_phase(batches, noises):
@@ -633,8 +756,9 @@ def serve_phase(batches, noises):
     print(f"serve main path launches: {json.dumps(launches)}")
     if launches["pool_core_fwd"] == 0:
         fail("the serving path never launched pool_core_fwd")
-    if launches["lstm_fused_fwd"]:
-        fail("the Predictor serves on the scan route: it must not launch K3")
+    if launches["lstm_fused_fwd"] or launches["lstm_proj_fwd"]:
+        fail("the Predictor serves on the scan route: it must not launch K3 "
+             "or K5")
     for b, outs in out32.items():
         sizes = [s.shape[0] for s in batches[b][0]]
         if not all(o.shape == (K, n, cfg.pred_len, 2)
@@ -695,15 +819,19 @@ def serve_phase(batches, noises):
 
 def lstm_counts():
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
     return {"lstm_fused_fwd": lstm_fused_fwd.launches,
-            "lstm_fused_bwd": lstm_fused_bwd.launches}
+            "lstm_fused_bwd": lstm_fused_bwd.launches,
+            "lstm_proj_fwd": lstm_proj_fwd.launches,
+            "lstm_proj_bwd": lstm_proj_bwd.launches}
 
 
 def reset_counts():
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
     from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
     for wrapper in (pool_core_fwd, pool_core_bwd, lstm_fused_fwd,
-                    lstm_fused_bwd):
+                    lstm_fused_bwd, lstm_proj_fwd, lstm_proj_bwd):
         wrapper.launches = 0
 
 
@@ -714,10 +842,12 @@ def all_counts():
 
 
 def serve_fused_phase(predictor, batches, noises):
-    """Serving on the fused route: the Predictor's float32 generator driven
-    through generator_context + generator_sample_many with impl='fused'
-    (the Predictor itself has no such knob, as in the JAX package), on the
-    padded batches predict_batch builds, against impl='scan'."""
+    """Serving on the kernel routes: the Predictor's float32 generator
+    driven through generator_context + generator_sample_many with
+    impl='fused' and with impl='pallas' (the Predictor itself has no such
+    knob, as in the JAX package), on the padded batches predict_batch
+    builds, against impl='scan'. Each route's main path runs with every
+    count at 0 just before it and is read just after."""
     import numpy as np
     import torch
     from grouptraj_torch.utils import relative_to_abs
@@ -734,30 +864,44 @@ def serve_fused_phase(predictor, batches, noises):
         return relative_to_abs(preds, obs[None, :, :, -1, :]).cpu().numpy()
 
     tensors = {b: predictor.pad_batch(*batches[b]) for b in BUCKETS}
-    reset_counts()
-    out = {b: call(tensors[b], noises[b], "fused") for b in BUCKETS}
-    torch.cuda.synchronize()
-    launches = all_counts()
-    print(f"serve fused main path launches: {json.dumps(launches)}")
-    if launches["lstm_fused_fwd"] != 2 * len(BUCKETS) \
-            or launches["pool_core_fwd"] != len(BUCKETS):
-        fail("a fused serving call must launch K3 twice (encoder, decoder) "
-             "and K1 once")
+    # per call: K3 for the encoder and the decoder, or K5 for the encoder;
+    # K1 once on either
+    want = {"fused": {"lstm_fused_fwd": 2, "pool_core_fwd": 1},
+            "pallas": {"lstm_proj_fwd": 1, "pool_core_fwd": 1}}
+    launches, out = {}, {}
+    for impl, per_call in want.items():
+        reset_counts()
+        out[impl] = {b: call(tensors[b], noises[b], impl) for b in BUCKETS}
+        torch.cuda.synchronize()
+        launches[impl] = all_counts()
+        print(f"serve {impl} main path launches: "
+              f"{json.dumps(launches[impl])}")
+        expect = {k_: per_call.get(k_, 0) * len(BUCKETS)
+                  for k_ in launches[impl]}
+        if launches[impl] != expect:
+            fail(f"serving on the {impl} route must launch {per_call} per "
+                 f"call and nothing else")
     call_ms = {}
+    reset_counts()
     for b, (S, N, _) in BUCKETS.items():
         ref = call(tensors[b], noises[b], "scan")
         rows = tensors[b][3].cpu().numpy() > 0
-        d = np.abs(out[b] - ref)[:, rows].max()
-        if out[b].shape != (K, S, N, cfg.pred_len, 2) \
-                or not np.isfinite(out[b]).all():
-            fail(f"serve fused {b}: outputs not finite or of the wrong shape")
-        print(f"serve fused {b}: fused vs scan max |dpos| = {d:.3e} m "
-              f"(tolerance {SERVE_ATOL} m)")
-        if not d <= SERVE_ATOL:
-            fail(f"serve fused {b}: the fused route disagrees with scan")
+        for impl in want:
+            o = out[impl][b]
+            d = np.abs(o - ref)[:, rows].max()
+            if o.shape != (K, S, N, cfg.pred_len, 2) \
+                    or not np.isfinite(o).all():
+                fail(f"serve {impl} {b}: outputs not finite or of the "
+                     f"wrong shape")
+            print(f"serve {impl} {b}: {impl} vs scan max |dpos| = {d:.3e} m "
+                  f"(tolerance {SERVE_ATOL} m)")
+            if not d <= SERVE_ATOL:
+                fail(f"serve {impl} {b}: the {impl} route disagrees with "
+                     f"scan")
         n_traj = K * int(rows.sum())
-        secs = {"scan": [], "fused": []}
-        for impl in ("scan", "fused", "fused", "scan"):       # in turns
+        secs = {"scan": [], "fused": [], "pallas": []}
+        for impl in ("scan", "fused", "pallas", "pallas", "fused",
+                     "scan"):                                  # in turns
             call(tensors[b], noises[b], impl)                 # warm
             for _ in range(5):
                 t0 = time.perf_counter()
@@ -769,9 +913,11 @@ def serve_fused_phase(predictor, batches, noises):
             print(f"serve {impl} route f32 {b}: {med * 1e3:.2f} ms per call "
                   f"(context + k={K} decode + copy to the host, median of "
                   f"10), {n_traj / med:.0f} traj/s")
-    fused_calls = 1 + 2 * 6          # per bucket: the main path, two turns
-    if lstm_counts()["lstm_fused_fwd"] != 2 * len(BUCKETS) * fused_calls:
-        fail("the scan route launched K3, or the fused route skipped it")
+    calls = 2 * 6 * len(BUCKETS)     # each kernel route: two turns of six
+    if lstm_counts() != {"lstm_fused_fwd": 2 * calls, "lstm_fused_bwd": 0,
+                         "lstm_proj_fwd": calls, "lstm_proj_bwd": 0}:
+        fail("the scan route launched an LSTM kernel, or a kernel route "
+             "skipped its kernel")
     return launches, call_ms, lambda impl: call(
         tensors["S64_N64"], noises["S64_N64"], impl)
 
@@ -967,40 +1113,48 @@ def train_phase():
     _grad_report("train S8_N16 GPU vs CPU", names, grads, ref_grads)
     del cpu, ref_grads, grads
 
-    # (c) one iteration on the fused route (K3 x7, K4 x4) against the scan
-    # route, and against the fused route with the kernels' wrappers
-    # replaced by their plain versions
+    # (c) one iteration on each kernel route (fused: K3 x7, K4 x4; pallas:
+    # K5 x4, K6 x3) against the scan route, and against the same route with
+    # its kernels' wrappers replaced by their plain versions
     losses, names, grads = _one_iteration(state, batch, cfg, f32, **draw)
-    before = lstm_counts()
-    f_losses, _, f_grads = _one_iteration(state, batch, cfg, f32, **draw,
-                                          impl="fused")
-    torch.cuda.synchronize()
-    per_iter = {k_: v - before[k_] for k_, v in lstm_counts().items()}
-    print("train S64_N64 fused: one iteration launched "
-          + json.dumps(per_iter))
-    if per_iter != {"lstm_fused_fwd": 7, "lstm_fused_bwd": 4}:
-        fail("a fused iteration must launch K3 7 times and K4 4 times")
-    _loss_report("train S64_N64 fused vs scan", f_losses, losses)
-    _grad_report("train S64_N64 fused vs scan", names, f_grads, grads)
-    with plain_lstm_kernels():
-        p_losses, _, p_grads = _one_iteration(state, batch, cfg, f32, **draw,
-                                              impl="fused")
-    if lstm_counts() != {k_: v + before[k_] for k_, v in per_iter.items()}:
-        fail("the plain fused iteration launched an LSTM kernel")
-    _loss_report("train S64_N64 fused kernels vs plain fused", f_losses,
-                 p_losses)
-    _grad_report("train S64_N64 fused kernels vs plain fused", names, f_grads,
-                 p_grads)
-    del grads, f_grads, p_grads
+    routes = {"fused": ({"lstm_fused_fwd": 7, "lstm_fused_bwd": 4},
+                        plain_lstm_kernels),
+              "pallas": ({"lstm_proj_fwd": 4, "lstm_proj_bwd": 3},
+                         plain_lstm_proj_kernels)}
+    for impl, (launched, plain_kernels) in routes.items():
+        before = lstm_counts()
+        k_losses, _, k_grads = _one_iteration(state, batch, cfg, f32, **draw,
+                                              impl=impl)
+        torch.cuda.synchronize()
+        per_iter = {k_: v - before[k_] for k_, v in lstm_counts().items()}
+        print(f"train S64_N64 {impl}: one iteration launched "
+              + json.dumps(per_iter))
+        if per_iter != {k_: launched.get(k_, 0) for k_ in per_iter}:
+            fail(f"a {impl} iteration must launch {launched} and no other "
+                 f"LSTM kernel")
+        _loss_report(f"train S64_N64 {impl} vs scan", k_losses, losses)
+        _grad_report(f"train S64_N64 {impl} vs scan", names, k_grads, grads)
+        with plain_kernels():
+            p_losses, _, p_grads = _one_iteration(state, batch, cfg, f32,
+                                                  **draw, impl=impl)
+        if lstm_counts() != {k_: v + before[k_] for k_, v in
+                             per_iter.items()}:
+            fail(f"the plain {impl} iteration launched an LSTM kernel")
+        _loss_report(f"train S64_N64 {impl} kernels vs plain {impl}",
+                     k_losses, p_losses)
+        _grad_report(f"train S64_N64 {impl} kernels vs plain {impl}", names,
+                     k_grads, p_grads)
+        del k_grads, p_grads
+    del grads
 
-    # (d) the main paths: train_iterations with the defaults on both routes,
-    # in turns, every run from a copy of the same state; the widest bucket
-    # first; every count at 0 just before a run, read just after
+    # (d) the main paths: train_iterations with the defaults on the three
+    # routes, in turns, every run from a copy of the same state; the widest
+    # bucket first; every count at 0 just before a run, read just after
     launches, it_ms = {}, {}
     for N in (64, 16):
         tag = f"S{S}_N{N}"
-        ms = {"scan": [], "fused": []}
-        for impl in ("scan", "fused", "fused", "scan"):
+        ms = {"scan": [], "fused": [], "pallas": []}
+        for impl in ("scan", "fused", "pallas", "pallas", "fused", "scan"):
             iters = TRAIN_ITERS[impl]
             run = train_state_from_modules(copy.deepcopy(state.g),
                                            copy.deepcopy(state.d), tcfg)
@@ -1017,7 +1171,9 @@ def train_phase():
             per = {k_: v / iters for k_, v in counts.items()}
             want = {"pool_core_fwd": 4, "pool_core_bwd": 3,
                     "lstm_fused_fwd": 7 * (impl == "fused"),
-                    "lstm_fused_bwd": 4 * (impl == "fused")}
+                    "lstm_fused_bwd": 4 * (impl == "fused"),
+                    "lstm_proj_fwd": 4 * (impl == "pallas"),
+                    "lstm_proj_bwd": 3 * (impl == "pallas")}
             print(f"train {tag} {impl} main path launches: "
                   f"{json.dumps(counts)} over {iters} iterations")
             if per != want:
@@ -1034,7 +1190,7 @@ def train_phase():
                   f"({ms[impl][-1]:.2f} ms per iteration); last losses "
                   f"{json.dumps(last)}")
         b = gather_batch(data[N], idx[N][0, 0], cfg.obs_len)
-        for impl in ("scan", "fused"):
+        for impl in ("scan", "fused", "pallas"):
             it_ms[(impl, N)] = statistics.mean(ms[impl])
             d_ms = time_ms(lambda: d_step(run, b, cfg, tcfg, gen, impl=impl),
                            reps=10)
@@ -1045,19 +1201,34 @@ def train_phase():
                   f"g-step {g_ms:.3f} ms (CUDA events around one step, "
                   f"median of 10)")
         print(f"train {tag}: fused/scan = "
-              f"{it_ms[('scan', N)] / it_ms[('fused', N)]:.2f}x it/s")
+              f"{it_ms[('scan', N)] / it_ms[('fused', N)]:.2f}x it/s, "
+              f"pallas/scan = "
+              f"{it_ms[('scan', N)] / it_ms[('pallas', N)]:.2f}x it/s")
 
-    # (e) where one iteration's time goes, on both routes
+    # (e) where one iteration's time goes, on each route
     for impl, out_name in (("scan", "profile_train.txt"),
-                           ("fused", "profile_train_fused.txt")):
+                           ("fused", "profile_train_fused.txt"),
+                           ("pallas", "profile_train_pallas.txt")):
         profile_phase(lambda: train_iterations(state, data[64], idx[64][:1],
                                                cfg, tcfg, gen, impl=impl),
                       f"training iteration S{S}_N64 {impl}", out_name,
                       it_ms[(impl, 64)])
-    return {impl: launches[(impl, 64)] for impl in ("scan", "fused")}
+    return {impl: launches[(impl, 64)] for impl in TRAIN_ITERS}
 
 
 @contextlib.contextmanager
+def _swapped(module, **fns):
+    """Within the block ``module``'s attributes are ``fns``."""
+    saved = {k: getattr(module, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(module, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
 def plain_lstm_kernels():
     """Within the block the wrappers of K3 and K4 run their plain PyTorch
     versions on the card (a check's reference, never the port's path)."""
@@ -1065,16 +1236,22 @@ def plain_lstm_kernels():
     from grouptraj_torch.ops.lstm import (
         _fused_fwd_plain, fused_recurrence_bwd_plain,
     )
-    saved = cuda_lstm.lstm_fused_fwd, cuda_lstm.lstm_fused_bwd
-    cuda_lstm.lstm_fused_fwd = (
-        lambda w, h0, c0, gx=None, b=None, T=None, save=False:
+    return _swapped(
+        cuda_lstm, lstm_fused_bwd=fused_recurrence_bwd_plain,
+        lstm_fused_fwd=lambda w, h0, c0, gx=None, b=None, T=None, save=False:
         _fused_fwd_plain(w, gx, b, h0, c0,
                          gx.shape[0] if gx is not None else T, save))
-    cuda_lstm.lstm_fused_bwd = fused_recurrence_bwd_plain
-    try:
-        yield
-    finally:
-        cuda_lstm.lstm_fused_fwd, cuda_lstm.lstm_fused_bwd = saved
+
+
+def plain_lstm_proj_kernels():
+    """Within the block the wrappers of K5 and K6 run their plain PyTorch
+    versions on the card (a check's reference, never the port's path)."""
+    from grouptraj_torch.ops import cuda_lstm_proj
+    from grouptraj_torch.ops.lstm import (
+        lstm_proj_bwd_plain, lstm_proj_fwd_plain,
+    )
+    return _swapped(cuda_lstm_proj, lstm_proj_fwd=lstm_proj_fwd_plain,
+                    lstm_proj_bwd=lstm_proj_bwd_plain)
 
 
 # ----------------------------------------------------------------- main
@@ -1114,6 +1291,7 @@ def main():
     max_err, timed = kernel_phase(rng)
     bwd_err, bwd_timed = kernel_bwd_phase(rng)
     k3_err, k4_err, lstm_timed, lstm_library = lstm_kernel_phase()
+    k5_err, k6_err, proj_timed = proj_kernel_phase()
 
     batches = {b: make_scenes(rng, scene_sizes(rng, S, 2, hi))
                for b, (S, N, hi) in BUCKETS.items()}
@@ -1121,39 +1299,48 @@ def main():
     noises = {b: torch.randn((K, S, N, 8), generator=gen, device="cuda")
               for b, (S, N, _) in BUCKETS.items()}
     serve_launches, p16, p32, call_ms = serve_phase(batches, noises)
-    fused_serve_launches, fused_call_ms, fused_call = serve_fused_phase(
+    route_serve_launches, route_call_ms, route_call = serve_fused_phase(
         p32, batches, noises)
     sc, gr = batches["S64_N64"]
     profile_phase(lambda: p16.predict_batch(sc, gr, noises=noises["S64_N64"]),
                   "predict_batch", "profile_serve.txt",
                   call_ms["bf16_S64_N64"])
-    profile_phase(lambda: fused_call("fused"), "fused serving call f32",
-                  "profile_serve_fused.txt", fused_call_ms["fused_S64_N64"])
-    del p16, p32, fused_call
+    profile_phase(lambda: route_call("fused"), "fused serving call f32",
+                  "profile_serve_fused.txt", route_call_ms["fused_S64_N64"])
+    del p16, p32, route_call
     train_launches = train_phase()
 
     # launches: every main path, each driven with the counts at 0 just
     # before it and read just after it: serving through the Predictor (scan
-    # route), serving on the fused route, and train_iterations at S=64,
-    # N=64 on the scan route (10 iterations) and on the fused route (30).
-    # No single PyTorch call computes a kernel's function, so library_ms is
-    # null; the nearest call for K3/K4, torch.nn.LSTM with the input
-    # projection on both sides, is under "nearest_library".
-    paths = {"serve": serve_launches, "serve_fused": fused_serve_launches,
+    # route), serving on the fused and on the pallas route, and
+    # train_iterations at S=64, N=64 on the three routes (TRAIN_ITERS
+    # iterations each). No single PyTorch call computes K1-K4's functions,
+    # so their library_ms is null; the nearest call for K3/K4,
+    # torch.nn.LSTM with the input projection on both sides, is under
+    # "nearest_library". nn.LSTM computes exactly K5's function (and its
+    # backward K6's): K5's library_ms is its forward with grad at the
+    # discriminator encoder's shape, K6's its forward + backward less that.
+    paths = {"serve": serve_launches,
+             "serve_fused": route_serve_launches["fused"],
+             "serve_pallas": route_serve_launches["pallas"],
              "train": train_launches["scan"],
-             "train_fused": train_launches["fused"]}
+             "train_fused": train_launches["fused"],
+             "train_pallas": train_launches["pallas"]}
 
-    def entry(name, source, replaces, err, shape, t, **more):
+    def entry(name, source, replaces, err, shape, t, library_ms=None,
+              **more):
         by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None, **more}
+                "library_ms": library_ms, **more}
 
     k3_shape, k4_shape = ("decoder_T11_B81920_H32_nograd",
                           "D_encoder_T20_B8192_H48")
+    k56_shape = "D_encoder_T20_B8192_D16_H48"
+    d_lib = lstm_library["D_encoder_T20_B8192_H48"]
     record = {"kernels": [
         entry("pool_core_fwd", "grouptraj_torch/csrc/pool_core_fwd.cu",
               "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
@@ -1171,7 +1358,19 @@ def main():
               lstm_timed[k4_shape]["bwd"],
               shapes={n: t["bwd"] for n, t in lstm_timed.items()
                       if "bwd" in t},
-              nearest_library=lstm_library)]}
+              nearest_library=lstm_library),
+        entry("lstm_proj_fwd", "grouptraj_torch/csrc/lstm_proj_fwd.cu",
+              "grouptraj/ops/pallas_lstm.py:45", k5_err, k56_shape,
+              proj_timed[k56_shape]["fwd"],
+              library_ms=d_lib["library_fwd_train_ms"],
+              shapes={n: t["fwd"] for n, t in proj_timed.items()}),
+        entry("lstm_proj_bwd", "grouptraj_torch/csrc/lstm_proj_bwd.cu",
+              "grouptraj/ops/pallas_lstm.py:71", k6_err, k56_shape,
+              proj_timed[k56_shape]["bwd"],
+              library_ms=(d_lib["library_fwd_bwd_ms"]
+                          - d_lib["library_fwd_train_ms"]),
+              shapes={n: t["bwd"] for n, t in proj_timed.items()
+                      if "bwd" in t})]}
     for kernel in record["kernels"]:
         if kernel["launches"] == 0:
             fail(f"{kernel['name']} was launched on no main path")

@@ -195,18 +195,6 @@ lstm_fused_bwd_kernel(const float* __restrict__ w,
   }
 }
 
-// out[e] = sum over blocks b, in order, of part[b][e]
-__global__ void reduce_partials_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int nb,
-                                       int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-#pragma unroll 4
-  for (int b = 0; b < nb; ++b) s += part[(size_t)b * n + e];
-  out[e] = s;
-}
-
 template <int H, bool WITH_GX>
 cudaError_t launch(const float* w, const float* h0, const float* c0,
                    const float* ys, const float* gates, const float* cs,

@@ -13,8 +13,10 @@ and the training step's no-grad legs may decode entirely in bfloat16.
 
 Every function is differentiable (serving wraps its calls in
 ``torch.inference_mode``, training does not) and takes ``impl``, the LSTM
-route of ``ops/lstm.py``: ``'scan'`` (default) or ``'fused'``, the
-whole-loop kernels for the encoder and the folded decoder. The ``gat``
+route of ``ops/lstm.py``: ``'scan'`` (default), ``'fused'``, the
+whole-loop kernels for the encoder and the folded decoder, or ``'pallas'``,
+the projection-in-kernel LSTM for the encoder only (the decoder stays on
+the scan route's folded recurrence, as in the JAX package). The ``gat``
 preset is covered: pool_net pooling, the GAT graph module, no per-step
 re-pooling.
 The other presets raise.

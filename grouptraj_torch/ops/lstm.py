@@ -2,7 +2,7 @@
 of ``grouptraj/ops/lstm.py``).
 
 Torch gate order (i, f, g, o), weights ``[in, 4H]`` / ``[H, 4H]`` as in the
-JAX package. Two routes compute every recurrence, chosen by ``impl``
+JAX package. Three routes compute every recurrence, chosen by ``impl``
 (:func:`select_impl` resolves it from ``TrainConfig.lstm_impl``):
 
 - ``'scan'`` (the default, and what ``'auto'`` resolves to): plain Python
@@ -28,9 +28,13 @@ JAX package. Two routes compute every recurrence, chosen by ``impl``
   :func:`decoder_recurrence_fused_plain`, :func:`fused_recurrence_bwd_plain`
   — the backward from SAVED post-activation gates and cell states, as the
   kernels do it, not from a recomputed z).
-
-``'pallas'`` (the per-timestep kernels K5/K6 of
-``grouptraj/ops/pallas_lstm.py``) is not ported and raises.
+- ``'pallas'``: the LSTM with its input projection inside the kernel
+  (:mod:`grouptraj_torch.ops.cuda_lstm_proj`: K5 forward, K6 backward, the
+  counterpart of ``grouptraj/ops/pallas_lstm.py``). :func:`lstm_scan`
+  hands it xs and both weight matrices; no gx slab is formed. It changes
+  the encoders only: the decoder stays on the scan route's folded
+  recurrence, as in the JAX package. On CPU tensors the kernels' plain
+  versions run (:func:`lstm_proj_fwd_plain`, :func:`lstm_proj_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -266,22 +270,20 @@ def lstm_recurrence(w_hh: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor,
     return _recurrence_loop(w_hh, gx, h0, c0, None)
 
 
-_NO_PALLAS = ("lstm_impl='pallas' is not ported yet: the per-timestep LSTM "
-              "kernels K5/K6 (grouptraj/ops/pallas_lstm.py _fwd_kernel / "
-              "_bwd_kernel) have no CUDA counterpart; use 'scan' or 'fused'")
+IMPLS = ("scan", "fused", "pallas")
 
 
 def select_impl(cfg, tcfg) -> str:
-    """The LSTM route of a training run from ``TrainConfig``: ``'scan'``
-    and ``'fused'`` are honoured, ``'auto'`` resolves to ``'scan'`` (as in
-    the JAX package), and ``'pallas'`` (or ``use_pallas``) raises: its
-    kernels are not ported."""
+    """The LSTM route of a training run from ``TrainConfig``: ``'scan'``,
+    ``'fused'`` and ``'pallas'`` (also ``use_pallas``) are honoured on
+    every device, and ``'auto'`` resolves to ``'scan'`` (as in the JAX
+    package, which also demotes the kernel routes to ``'scan'`` off the
+    TPU; the port runs their kernels on CUDA tensors and their plain
+    versions on CPU tensors)."""
     impl = getattr(tcfg, "lstm_impl", "auto")
     if getattr(tcfg, "use_pallas", False):
         impl = "pallas"
-    if impl == "pallas":
-        raise NotImplementedError(_NO_PALLAS)
-    return impl if impl in ("scan", "fused") else "scan"
+    return impl if impl in IMPLS else "scan"
 
 
 def lstm_scan(params: dict, xs: torch.Tensor,
@@ -289,18 +291,21 @@ def lstm_scan(params: dict, xs: torch.Tensor,
               c0: Optional[torch.Tensor] = None, impl: str = "scan"
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the LSTM over time. xs [T, B, in] -> (ys [T, B, H], (hT, cT)),
-    zero initial state by default. The input-gate products of ALL steps are
-    one ``[T·B, in] @ [in, 4H]`` matmul on either route; ``impl='fused'``
-    runs the recurrent half in the whole-loop kernel."""
-    if impl == "pallas":
-        raise NotImplementedError(_NO_PALLAS)
-    if impl not in ("scan", "fused"):
-        raise ValueError(f"impl must be 'scan' or 'fused', got {impl!r}")
+    zero initial state by default. On ``'scan'`` and ``'fused'`` the
+    input-gate products of ALL steps are one ``[T·B, in] @ [in, 4H]``
+    matmul, and ``'fused'`` runs the recurrent half in the whole-loop
+    kernel; ``'pallas'`` computes the projection inside its kernel, step by
+    step, and answers in float32."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, H = xs.shape[1], params["w_hh"].shape[0]
     if h0 is None:
         h0 = xs.new_zeros((B, H))
     if c0 is None:
         c0 = xs.new_zeros((B, H))
+    if impl == "pallas":
+        from grouptraj_torch.ops.cuda_lstm_proj import lstm_scan_proj
+        return lstm_scan_proj(params, xs, h0, c0)
     gx = xs @ params["w_ih"] + (params["b_ih"] + params["b_hh"])
     if impl == "fused":
         from grouptraj_torch.ops.cuda_lstm import lstm_recurrence_fused
@@ -312,10 +317,15 @@ def lstm_scan(params: dict, xs: torch.Tensor,
 # ------------------------------- plain versions of the whole-loop kernels
 
 def _fused_fwd_plain(w, gx, b, h, c, T, save):
+    """``z_t = gx_t + h_{t-1} @ w + b``, either of gx and b None."""
     H = w.shape[0]
     ys, gates, cs = [], [], []
     for t in range(T):
-        z = (gx[t] if gx is not None else b) + h @ w
+        z = h @ w
+        if gx is not None:
+            z = gx[t] + z
+        if b is not None:
+            z = z + b
         i, f, g, o = _gate_acts(z, H)
         c = f * c + i * g
         h = o * torch.tanh(c)
@@ -384,3 +394,34 @@ def fused_recurrence_bwd_plain(w: torch.Tensor, h0: torch.Tensor,
         else:
             db += dz.sum(dim=0)
     return dgx, dw, db, dh, dc
+
+
+# ------------------- plain versions of the projection-in-kernel LSTM kernels
+
+def lstm_proj_fwd_plain(w_ih: torch.Tensor, w_hh: torch.Tensor,
+                        b: torch.Tensor, xs: torch.Tensor, h0: torch.Tensor,
+                        c0: torch.Tensor, save: bool = False):
+    """Plain version of kernel K5: ``z_t = x_t @ w_ih + h_{t-1} @ w_hh + b``
+    (in that order, as the JAX package's kernel adds them) over xs
+    [T, B, D] from (h0, c0) -> (ys [T, B, H], hT, cT, gates, cs), the
+    residuals as in :func:`lstm_recurrence_fused_plain` (None unless
+    ``save``)."""
+    return _fused_fwd_plain(w_hh, xs @ w_ih, b, h0, c0, xs.shape[0], save)
+
+
+def lstm_proj_bwd_plain(w_ih: torch.Tensor, w_hh: torch.Tensor,
+                        xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                        ys: torch.Tensor, gates: torch.Tensor,
+                        cs: torch.Tensor, dys: Optional[torch.Tensor],
+                        dhT: Optional[torch.Tensor],
+                        dcT: Optional[torch.Tensor]):
+    """Plain version of kernel K6: back-propagation through time from K5's
+    saved gates and cell states (:func:`fused_recurrence_bwd_plain` gives
+    the per-step dz), then ``dxs[t] = dz_t @ w_ihᵀ``, ``dw_ih = Σ x_tᵀ
+    dz_t``, ``db = Σ dz_t``. A cotangent that is None counts as zero.
+    -> (dxs [T, B, D], dw_ih [D, 4H], dw_hh [H, 4H], db [4H], dh0, dc0)."""
+    dz, dw_hh, _, dh0, dc0 = fused_recurrence_bwd_plain(
+        w_hh, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx=True)
+    dz2 = dz.reshape(-1, dz.shape[-1])
+    return (dz @ w_ih.t(), xs.reshape(-1, xs.shape[-1]).t() @ dz2, dw_hh,
+            dz2.sum(dim=0), dh0, dc0)

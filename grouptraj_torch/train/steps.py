@@ -14,7 +14,8 @@
   label-smoothing scalar. Without an injected value a step draws from the
   ``torch.Generator`` it is given;
 - every step takes ``impl``, the LSTM route of all its recurrences
-  (``ops/lstm.py``: ``'scan'`` or ``'fused'``, the whole-loop kernels);
+  (``ops/lstm.py``: ``'scan'``, ``'fused'``, the whole-loop kernels, or
+  ``'pallas'``, the projection-in-kernel encoders);
   left None it is ``select_impl(cfg, tcfg)``, i.e. ``tcfg.lstm_impl``.
 
 A step mutates the models and optimizers of its :class:`TrainState` in

@@ -4,7 +4,10 @@ Predictor's kernel path against its plain-pool path, one training
 iteration through both kernels against the plain pool; K3
 (csrc/lstm_fused_fwd.cu) and K4 (csrc/lstm_fused_bwd.cu) against their
 plain versions, and a training iteration with ``lstm_impl='fused'`` against
-``'scan'``. Marked ``cuda``; each test skips without a CUDA device.
+``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
+against their plain versions, and a training iteration with
+``lstm_impl='pallas'`` against ``'scan'``. Marked ``cuda``; each test skips
+without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -16,7 +19,8 @@ da/du 1e-5 and dW2/db2 1e-4 relative to the largest reference entry, given
 the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
 training iteration's losses 1e-4 relative; K3's outputs 1e-5 absolute and
 K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 48
-products in another order, accurate expf/tanhf on both sides).
+products in another order, accurate expf/tanhf on both sides), and the same
+for K5 and K6.
 """
 
 import dataclasses
@@ -278,6 +282,84 @@ def test_fused_training_iteration_matches_scan(cuda):
                            generator=torch.Generator(cuda).manual_seed(0))
     assert (lstm_fused_fwd.launches, lstm_fused_bwd.launches) == (fwd + 7,
                                                                   bwd + 4)
+    for k, v in out.items():
+        assert torch.isfinite(v).all()
+        assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k
+
+
+# ------------------------- K5 / K6, the LSTM with its projection in the kernel
+
+def _proj_case(cuda, T, B, D, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    w_ih, w_hh, b = r(D, 4 * H) * 0.3, r(H, 4 * H) * 0.3, r(4 * H) * 0.1
+    return w_ih, w_hh, b, r(T, B, D), r(B, H), r(B, H), (r(T, B, H),
+                                                          r(B, H), r(B, H))
+
+
+@pytest.mark.parametrize("T,B,D,H", [(8, 100, 16, 32), (20, 70, 16, 48),
+                                     (5, 9, 4, 8), (6, 40, 8, 64)])
+def test_proj_kernels_match_plain(cuda, T, B, D, H):
+    """K5 with and without residuals, then K6 on K5's residuals with all
+    cotangents and with only dhT, against their plain versions."""
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import (
+        lstm_proj_bwd_plain, lstm_proj_fwd_plain,
+    )
+    w_ih, w_hh, b, xs, h0, c0, (dys, dhT, dcT) = _proj_case(
+        cuda, T, B, D, H, seed=T + B)
+    for save in (False, True):
+        before = lstm_proj_fwd.launches
+        out = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=save)
+        assert lstm_proj_fwd.launches == before + 1
+        ref = lstm_proj_fwd_plain(w_ih, w_hh, b, xs, h0, c0, save)
+        torch.cuda.synchronize()
+        assert (out[3] is None) == (out[4] is None) == (not save)
+        for x, y in zip(out, ref):
+            if x is not None:
+                assert (x - y).abs().max().item() <= 1e-5
+    ys, _, _, gates, cs = out
+    for cot in ((dys, dhT, dcT), (None, dhT, None)):
+        before = lstm_proj_bwd.launches
+        got = lstm_proj_bwd(w_ih, w_hh, xs, h0, c0, ys, gates, cs, *cot)
+        assert lstm_proj_bwd.launches == before + 1
+        want = lstm_proj_bwd_plain(w_ih, w_hh, xs, h0, c0, ys, gates, cs,
+                                   *cot)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert x.shape == y.shape and bool(torch.isfinite(x).all())
+            assert (x - y).abs().max().item() <= 1e-4 * max(
+                y.abs().max().item(), 1e-30)
+
+
+def test_pallas_training_iteration_matches_scan(cuda):
+    """Through train_iterations with ``lstm_impl='pallas'``: K5 four times
+    and K6 three times per iteration, losses equal to the scan route's."""
+    import copy
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import (
+        init_train_state, train_iterations, train_state_from_modules,
+    )
+    cfg = ModelConfig()
+    pallas = dataclasses.replace(TrainConfig(), best_k=4, bf16_nograd=False,
+                                 lstm_impl="pallas")
+    scan = dataclasses.replace(pallas, lstm_impl="scan")
+    state = init_train_state(cfg, pallas, device=cuda)
+    ref_state = train_state_from_modules(copy.deepcopy(state.g),
+                                         copy.deepcopy(state.d), scan)
+    data = synthetic_device_data(32, 16, device=cuda)
+    idx = torch.arange(16, device=cuda).reshape(1, 2, 8)
+    fwd, bwd = lstm_proj_fwd.launches, lstm_proj_bwd.launches
+    out = train_iterations(state, data, idx, cfg, pallas,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert (lstm_proj_fwd.launches, lstm_proj_bwd.launches) == (fwd + 4,
+                                                                bwd + 3)
+    ref = train_iterations(ref_state, data, idx, cfg, scan,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    assert (lstm_proj_fwd.launches, lstm_proj_bwd.launches) == (fwd + 4,
+                                                                bwd + 3)
     for k, v in out.items():
         assert torch.isfinite(v).all()
         assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k

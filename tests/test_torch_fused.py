@@ -258,21 +258,21 @@ def test_lstm_scan_matches_jax(impl, monkeypatch):
 @pytest.mark.parametrize("lstm_impl,use_pallas,want", [
     ("auto", False, "scan"), ("scan", False, "scan"),
     ("fused", False, "fused"), ("something else", False, "scan"),
-    ("pallas", False, NotImplementedError),
-    ("fused", True, NotImplementedError)])
+    ("pallas", False, "pallas"), ("fused", True, "pallas")])
 def test_select_impl(lstm_impl, use_pallas, want):
     tcfg = TrainConfig(lstm_impl=lstm_impl, use_pallas=use_pallas)
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="K5/K6"):
-            TL.select_impl(None, tcfg)
-    else:
-        assert TL.select_impl(None, tcfg) == want
+    assert TL.select_impl(None, tcfg) == want
 
 
 def test_lstm_scan_refuses_unported_routes():
-    p, xs, _, _ = _lstm_inputs(2, 3, 4, 8, seed=0)
+    """An unknown route raises; ``'pallas'`` (ported: kernels K5/K6) runs
+    and agrees with ``'scan'``."""
+    p, xs, h0, c0 = _lstm_inputs(2, 3, 4, 8, seed=0)
     tp = {k: _t(v) for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        TL.lstm_scan(tp, _t(xs), impl="pallas")
     with pytest.raises(ValueError):
         TL.lstm_scan(tp, _t(xs), impl="auto")
+    for state in ((), (_t(h0), _t(c0))):
+        ys, (h, c) = TL.lstm_scan(tp, _t(xs), *state, impl="pallas")
+        ys_s, (h_s, c_s) = TL.lstm_scan(tp, _t(xs), *state, impl="scan")
+        for x, y in ((ys, ys_s), (h, h_s), (c, c_s)):
+            assert (x - y).abs().max() <= 1e-5

@@ -46,6 +46,7 @@ from grouptraj_torch.config import ModelConfig, TrainConfig
 from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
 from grouptraj_torch.models.generator import TrajectoryGenerator
 from grouptraj_torch.ops import cuda_lstm as CL
+from grouptraj_torch.ops import cuda_lstm_proj as CP
 from grouptraj_torch.train import steps as TS
 
 NARROW = dict(embedding_dim=8, encoder_h_dim_g=16, decoder_h_dim_g=16,
@@ -304,10 +305,18 @@ def test_bf16_nograd_legs_on_the_fused_route(jax_fused):
         assert (a - b).abs().max() <= 1e-5 * max(1.0, b.abs().max())
 
 
-def test_pallas_route_raises_through_the_steps(jax_fused):
+def test_pallas_route_raises_through_the_steps(jax_fused, monkeypatch):
+    """``lstm_impl='pallas'`` (ported: kernels K5/K6) is taken by the
+    steps when ``impl`` is left None — both encoders of both steps go
+    through K5's wrapper — and both run to finite losses."""
+    calls = []
+    fwd = CP.lstm_proj_fwd
+    monkeypatch.setattr(CP, "lstm_proj_fwd",
+                        lambda *a, **k: calls.append(1) or fwd(*a, **k))
     state, batch = _port_state(jax_fused["init"]), _batch(jax_fused["batch"])
     tcfg = dataclasses.replace(TCFG, lstm_impl="pallas")
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        TS.d_step(state, batch, CFG, tcfg)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        TS.g_step(state, batch, CFG, TCFG, impl="pallas")
+    _, _, _, d_draw, g_draw = _draws()
+    losses = TS.d_step(state, batch, CFG, tcfg, **d_draw)
+    losses.update(TS.g_step(state, batch, CFG, tcfg, **g_draw))
+    assert len(calls) == 4
+    assert all(bool(torch.isfinite(v)) for v in losses.values())

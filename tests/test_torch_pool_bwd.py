@@ -100,14 +100,28 @@ def _cotangent(valid, B, seed=11):
             ).astype(np.float32)
 
 
+@jax.jit
+def _jax_vjp_one(a, u, W2, b2, valid, dpool):
+    _, vjp = jax.vjp(lambda *x: jax_pool_core(*x, valid), a, u, W2, b2)
+    return vjp(dpool)
+
+
 def _jax_vjp(a, u, W2, b2, valid, dpool):
-    """Per replica, the VJP of the JAX package's plain core."""
-    outs = []
-    for r in range(a.shape[0]):
-        _, vjp = jax.vjp(lambda *x: jax_pool_core(*x, valid[r]),
-                         a[r], u[r], W2[r], b2[r])
-        outs.append([np.asarray(g) for g in vjp(jnp.asarray(dpool[r]))])
+    """Per replica, the VJP of the JAX package's plain core (jitted once
+    per shape: cases of equal shapes share the compiled reference)."""
+    outs = [[np.asarray(g) for g in _jax_vjp_one(a[r], u[r], W2[r], b2[r],
+                                                  valid[r], dpool[r])]
+            for r in range(a.shape[0])]
     return [np.stack(g) for g in zip(*outs)]
+
+
+@jax.jit
+def _pallas_bwd(a, u, W2, b2, valid, dpool):
+    """The TPU kernels' forward and backward (interpreted), jitted once
+    per shape: cases of equal shapes share the traced kernels."""
+    _, pooled_padded, cnt_padded = PP._core_fwd(a, u, W2, b2, valid)
+    return PP._core_bwd(a, u, W2, b2, valid, pooled_padded, cnt_padded,
+                        dpool)
 
 
 def _assert_grads(got, ref, what):
@@ -144,9 +158,7 @@ def test_plain_backward_matches_jax_vjp(name):
 def test_plain_backward_matches_pallas_backward(name):
     a, u, W2, b2, valid = _case(name)
     dpool = _cotangent(valid, W2.shape[-1])
-    _, pooled_padded, cnt_padded = PP._core_fwd(a, u, W2, b2, valid)
-    ref = [np.asarray(g) for g in PP._core_bwd(
-        a, u, W2, b2, valid, pooled_padded, cnt_padded, jnp.asarray(dpool))]
+    ref = [np.asarray(g) for g in _pallas_bwd(a, u, W2, b2, valid, dpool)]
     ta, tu, tW, tb, tv, td = (_t(x) for x in (a, u, W2, b2, valid, dpool))
     pooled, cnt = pool_core(ta, tu, tW, tb, tv)
     _assert_grads(pool_core_bwd_plain(ta, tu, tW, tb, tv, pooled, cnt, td),
@@ -232,8 +244,10 @@ def test_pair_formula_gradcheck_float64():
                                     atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", ["pair", "fast", "kernel"])
-def test_pool_hidden_net_gradients_match(impl):
+@pytest.fixture(scope="module")
+def pool_hidden_net_case():
+    """Inputs and the JAX package's gradients (``impl='pair'``, jitted),
+    shared by the three port implementations."""
     S, N, E, H, B = 3, 11, 16, 32, 8
     rng = np.random.default_rng(7)
     p = init_pool_hidden_net(jax.random.PRNGKey(0), E, H, B)
@@ -245,8 +259,13 @@ def test_pool_hidden_net_gradients_match(impl):
     def jax_loss(p, h, pos):
         return jnp.sum(jax_pool_hidden_net(p, h, pos, valid, impl="pair") * w)
 
-    gp, gh, gpos = jax.grad(jax_loss, argnums=(0, 1, 2))(p, h, pos)
+    grads = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(p, h, pos)
+    return p, h, pos, valid, w, grads
 
+
+@pytest.mark.parametrize("impl", ["pair", "fast", "kernel"])
+def test_pool_hidden_net_gradients_match(impl, pool_hidden_net_case):
+    p, h, pos, valid, w, (gp, gh, gpos) = pool_hidden_net_case
     tp = jax.tree_util.tree_map(lambda x: _t(x).requires_grad_(), p)
     th, tpos = _t(h).requires_grad_(), _t(pos).requires_grad_()
     out = pool_hidden_net(tp, th, tpos, _t(valid), impl=impl)

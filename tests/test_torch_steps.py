@@ -82,13 +82,20 @@ def _draws(it):
 
 
 @pytest.fixture(scope="module")
-def jax_run():
-    """ITERS iterations of the JAX d-step + g-step: the initial state, and
-    after each iteration the losses and both parameter trees."""
+def jax_state():
+    """The JAX package's initial train state, shared by the module."""
     state = jax_init_train_state(jax.random.PRNGKey(0), JCFG, JTCFG)
     # lift the classifier's last bias so D's trailing ReLU lets scores and
     # gradients through (at the raw init most scores are clipped to 0)
     state.d_params["real_classifier"]["layers"][-1]["linear"]["b"] += 1.0
+    return state
+
+
+@pytest.fixture(scope="module")
+def jax_run(jax_state):
+    """ITERS iterations of the JAX d-step + g-step: the initial state, and
+    after each iteration the losses and both parameter trees."""
+    state = jax_state
     batch = synthetic_batch(S, N, JCFG.obs_len, JCFG.pred_len, seed=5)
     d_step = jax.jit(build_d_step(JCFG, JTCFG))
     g_step = jax.jit(build_g_step(JCFG, JTCFG))
@@ -247,16 +254,15 @@ def test_bf16_nograd_steps(jax_run):
     assert all(p.dtype == torch.float32 for p in bf16.g.parameters())
 
 
-def test_generator_forward_matches_jax(jax_run):
+def test_generator_forward_matches_jax(jax_run, jax_state):
     """generator_forward = context + one sample, on an injected noise."""
     from grouptraj.models import generator_forward as jax_generator_forward
     init, arrays, _ = jax_run
-    state = jax_init_train_state(jax.random.PRNGKey(0), JCFG, JTCFG)
     _, _, d_draw, _ = _draws(0)
-    ref = jax_generator_forward(
-        state.g_params, JCFG, arrays["obs"], arrays["obs_rel"],
+    ref = jax.jit(lambda g, *a: jax_generator_forward(g, JCFG, *a))(
+        jax_state.g_params, arrays["obs"], arrays["obs_rel"],
         arrays["group"], arrays["valid"], jax.random.PRNGKey(1),
-        user_noise=d_draw["noise"].numpy())
+        d_draw["noise"].numpy())
     b = _batch(arrays)
     g = _port_state(init).g
     with torch.no_grad():
