@@ -4,17 +4,23 @@
 
 Phases, each of which fails the run on any error:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed;
-3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu) against
-   its plain PyTorch version on the card: the serving buckets, B=48, R=2,
-   ragged masks with holes and pad scenes, ReLU and duplicate-row ties,
-   bf16 weights, odd sizes (N=70, K=260, B=5); then K2 (its backward,
-   csrc/pool_core_bwd.cu) against its plain version at the training
-   shapes (S=64/N=64/B=8, S=128/N=64/B=48, S=256/N=16), R=2, holes, pad
-   scenes, odd sizes, ReLU-zero, duplicate-row and exact-input ties, a
-   cotangent that is non-zero at invalid rows, and the recount of the
-   forward's tie counts; kernel and plain times by CUDA events beside the
-   bound; then K3 (the whole-loop LSTM recurrence, csrc/lstm_fused_fwd.cu)
+2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed; the
+   count of tensor-core (HMMA) instructions in each pool kernel's SASS
+   (cuobjdump), which must not be 0 for K1's and K2's tile kernels;
+3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
+   against its plain PyTorch version on the card: the serving buckets, the
+   discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
+   holes and pad scenes, ReLU and duplicate-row ties, bf16 weights at B=8
+   and 48, odd sizes (N=70, K=260, B=5), B=100 (two launches), N=256 at
+   B=48; then K2 (its backward, csrc/pool_core_bwd.cu) against its plain
+   version at the training shapes (S=64/N=64/B=8, S=128/N=64/B=48,
+   S=256/N=16), R=2, holes, pad scenes, odd sizes, ReLU-zero,
+   duplicate-row and exact-input ties, N=256 at B=48 (too wide to stage a
+   scene in shared memory), a cotangent that is non-zero at invalid rows,
+   and the recount of the forward's tie counts; kernel and plain times by
+   CUDA events beside the float32-core and the tensor-core bound, and K2's
+   four kernels timed apart by torch.profiler; then K3 (the
+   whole-loop LSTM recurrence, csrc/lstm_fused_fwd.cu)
    and K4 (its backward, csrc/lstm_fused_bwd.cu), both variants, against
    their plain versions at the full-width shapes of the training step and
    of serving (generator encoder T=8/B=4,096/H=32, discriminator encoder
@@ -66,6 +72,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,14 +82,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "models", "grouptraj", "zara1_12_with_model.pt")
 K = 20                       # best-of-k samples served per call
 FP32_PEAK = 67e12            # H100 SXM float32 (non-tensor) FLOP/s
+TF32_PEAK = 495e12           # H100 SXM TF32 tensor-core FLOP/s, dense
+# float32 operations per (pair, k) beside the pool kernels' mma: subtract,
+# ReLU, and the split hi = tf32(x), lo = tf32(x - hi)
+TC_ELEMENTWISE_OPS = 5
 HBM_BW = 3.35e12             # H100 SXM HBM bytes/s
+SLEEP_CYCLES = 2_000_000     # ~1 ms of GPU clock: the stream's lead in time_ms
 POOL_ATOL = 1e-4             # kernel vs plain, pooled (see check_kernel)
 BWD_RTOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}  # check_bwd
 SERVE_ATOL = 1e-3            # metres, kernel vs plain pool end to end
-# device functions of K1 (the first), K2 (the next four), K3 and K4 (two),
-# K4's and K6's block-order sum, K5 and K6, as a trace names them
-PORT_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "rows_kernel",
-                "weight_partials_kernel", "weight_reduce_kernel",
+# device functions of K1 and K2 (the weight split they share, K1's tile,
+# K2's three passes), K3 and K4 (two), K4's and K6's block-order sum, K5
+# and K6, as a trace names them
+PORT_KERNELS = ("split_w_kernel", "pool_core_fwd_kernel", "ties_kernel",
+                "tie_grads_kernel", "weight_reduce_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
                 "reduce_partials_kernel", "lstm_proj_fwd_kernel",
                 "lstm_proj_bwd_kernel")
@@ -105,13 +118,59 @@ TRAIN_GRAD_RTOL = 1e-2
 BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 
+def kernel_name(line):
+    """``pool_core_fwd_kernel<6,f32>`` from a line that names a pool
+    kernel's mangled symbol (ptxas or cuobjdump; the base name alone from a
+    profiler's demangled one); None for other kernels."""
+    m = re.search(r"((?:split_w|pool_core_fwd|ties|tie_grads|weight_reduce)"
+                  r"_kernel)(?:I(?:L[ib](\d+)E)?(f|13__nv_bfloat16)?E)?", line)
+    if m is None:
+        return None
+    args = [x for x in (m.group(2), {None: None, "f": "f32"}.get(
+        m.group(3), "bf16")) if x]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_hmma(libs):
+    """The count of HMMA (tensor-core mma) instructions in each kernel of
+    the two pool libraries' SASS, by cuobjdump beside nvcc; fails if K1's
+    or K2's tile kernel has none. None where the toolkit has no cuobjdump."""
+    from grouptraj_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"sass: no cuobjdump at {tool}; HMMA count not taken")
+        return None
+    counts = {}
+    for lib in ("pool_core_fwd", "pool_core_bwd"):
+        sass = subprocess.run([tool, "-sass", str(libs[lib])],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = kernel_name(line)
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+    print("sass HMMA: " + " ".join(f"{f}={c}" for f, c in counts.items()))
+    tiles = {f: c for f, c in counts.items()
+             if f.startswith(("pool_core_fwd_kernel", "ties_kernel"))}
+    if not tiles or min(tiles.values()) == 0:
+        fail("a pool tile kernel runs no tensor-core instruction (HMMA)")
+    return counts
+
+
 def fail(msg):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(2)
 
 
 def time_ms(fn, reps=20, warmup=3):
-    """Median of ``reps`` single-call CUDA-event times (ms), after warm-up."""
+    """Median of ``reps`` single-call CUDA-event times (ms), after warm-up.
+    Before each call a ~1 ms sleep kernel holds the stream, so the events
+    bracket the call's device work and not the host's time to enqueue it
+    (a pool wrapper takes ~60 us of host time, longer than its kernel at
+    the serving shapes)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -119,6 +178,7 @@ def time_ms(fn, reps=20, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -183,22 +243,49 @@ def pool_inputs(rng, valid, K_=512, B=8, R=1, bf16=False):
             cuda(torch.from_numpy(valid.astype(np.float32))))
 
 
+def _bounds(pairs, K_, B, passes, extra_ops, nbytes):
+    """Least times (ms) for pair work on these inputs, both against every
+    input read and every output written once over HBM bandwidth:
+
+    - float32 cores: K·(2+2B) operations per valid pair (subtract, ReLU,
+      B multiply-adds) plus ``extra_ops``, over FP32_PEAK;
+    - tensor cores: the pair products (2·B per pair and k) times the
+      ``passes`` of the 3xTF32 split over TF32_PEAK, and beside them (the
+      two units run at once, so the larger counts) the subtract, the ReLU
+      and the split (TC_ELEMENTWISE_OPS per pair and k) plus ``extra_ops``
+      over FP32_PEAK.
+
+    ``bound_ms`` is the smaller of the two; ``bound_by`` says whether bytes
+    or operations set it and ``bound_unit`` which units' bound it is."""
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_f32 = (pairs * K_ * (2 + 2 * B) + extra_ops) / FP32_PEAK * 1e3
+    t_tc = max(pairs * K_ * 2 * B * passes / TF32_PEAK,
+               (pairs * K_ * TC_ELEMENTWISE_OPS + extra_ops) / FP32_PEAK) * 1e3
+    f32, tc = max(t_f32, t_bytes), max(t_tc, t_bytes)
+    unit, t_ops = ("tensor-core", t_tc) if tc <= f32 else ("float32", t_f32)
+    return dict(bound_ms=min(f32, tc),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_unit=unit, bound_f32_ms=f32, bound_tc_ms=tc)
+
+
+def _valid_pairs(valid):
+    nv = valid.sum(-1).double()
+    return float((nv * nv).sum())
+
+
 def pool_bound_ms(a, W2, valid, outputs_bytes):
-    """Least time for the pair core on these inputs: the operations the
-    valid pairs need (K·(2+2B) per pair: subtract, ReLU, B multiply-adds)
-    over the float32 peak, against reading every input and writing every
-    output once over HBM bandwidth."""
+    """Least time for the pair core on these inputs (:func:`_bounds`):
+    the valid pairs' operations, with 3 split passes for float32 weights
+    and 2 for bfloat16, against reading a, u, W2, b2, valid and writing the
+    outputs once."""
+    import torch
     R, S, N, K_ = a.shape
     B = W2.shape[-1]
-    nv = valid.sum(-1).double()
-    pairs = float((nv * nv).sum())
-    ops = pairs * K_ * (2 + 2 * B)
     nbytes = (2 * a.numel() * 4 + W2.numel() * W2.element_size()
               + B * R * W2.element_size() + valid.numel() * 4
               + outputs_bytes)
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    passes = 3 if W2.dtype == torch.float32 else 2
+    return _bounds(_valid_pairs(valid), K_, B, passes, 0.0, nbytes)
 
 
 def check_kernel(name, a, u, W2, b2, valid, expect_ties=False):
@@ -229,6 +316,12 @@ def check_kernel(name, a, u, W2, b2, valid, expect_ties=False):
     return err
 
 
+def _bound_text(b):
+    return (f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}, "
+            f"{b['bound_unit']}; float32 {b['bound_f32_ms']:.4f}, "
+            f"tensor-core {b['bound_tc_ms']:.4f})")
+
+
 def kernel_phase(rng):
     import numpy as np
     from grouptraj_torch.ops.cuda_pool import pool_core_fwd
@@ -237,26 +330,29 @@ def kernel_phase(rng):
     errs, timed = [], {}
     main_cases = {"S64_N64_B8": realistic_valid(rng, 64, 64, 2, 57),
                   "S256_N16_B8": realistic_valid(rng, 256, 16, 2, 16)}
-    for name, valid in main_cases.items():
-        args = pool_inputs(rng, valid)
+    # the discriminator's pool (B=48): the d-step's 2S = 128 scenes and the
+    # g-step's S = 64
+    b48_cases = {"S128_N64_B48": realistic_valid(rng, 128, 64, 2, 57),
+                 "S64_N64_B48": realistic_valid(rng, 64, 64, 2, 57)}
+    for name, valid in list(main_cases.items()) + list(b48_cases.items()):
+        args = pool_inputs(rng, valid, B=48 if name in b48_cases else 8)
         errs.append(check_kernel(name, *args))
         out_bytes = 2 * args[0].shape[0] * args[0].shape[1] \
             * args[0].shape[2] * args[2].shape[-1] * 4
-        bound, by = pool_bound_ms(args[0], args[2], args[4], out_bytes)
+        bound = pool_bound_ms(args[0], args[2], args[4], out_bytes)
         ms = time_ms(lambda: pool_core_fwd(*args))
         plain_ms = time_ms(lambda: pool_core(*args))
-        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, **bound)
         print(f"kernel {name} time: kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
-              f"kernel/bound={ms / bound:.2f}")
+              f"{plain_ms:.4f} {_bound_text(bound)} "
+              f"kernel/bound={ms / bound['bound_ms']:.2f}")
     full = np.ones((1, 64, 64))
     args = pool_inputs(rng, full)
     errs.append(check_kernel("S64_N64_B8_dense", *args))
-    bound, by = pool_bound_ms(args[0], args[2], args[4], 2 * 64 * 64 * 8 * 4)
+    bound = pool_bound_ms(args[0], args[2], args[4], 2 * 64 * 64 * 8 * 4)
     ms = time_ms(lambda: pool_core_fwd(*args))
     print(f"kernel S64_N64_B8_dense time: kernel_ms={ms:.4f} "
-          f"bound_ms={bound:.4f} ({by}) kernel/bound={ms / bound:.2f}")
+          f"{_bound_text(bound)} kernel/bound={ms / bound['bound_ms']:.2f}")
     errs.append(check_kernel("B48", *pool_inputs(rng, main_cases[
         "S64_N64_B8"], B=48)))
     errs.append(check_kernel("R2", *pool_inputs(
@@ -275,30 +371,32 @@ def kernel_phase(rng):
                              expect_ties=True))
     errs.append(check_kernel("bf16_weights", *pool_inputs(
         rng, main_cases["S64_N64_B8"], bf16=True)))
+    errs.append(check_kernel("bf16_weights_B48", *pool_inputs(
+        rng, b48_cases["S128_N64_B48"], B=48, bf16=True)))
+    errs.append(check_kernel("wide_B100", *pool_inputs(
+        rng, realistic_valid(rng, 8, 40, 3, 40), B=100)))
     errs.append(check_kernel("odd_N70_K260_B5", *pool_inputs(
         rng, realistic_valid(rng, 5, 70, 3, 70), K_=260, B=5)))
+    errs.append(check_kernel("wide_N256_B48", *pool_inputs(
+        rng, realistic_valid(rng, 4, 256, 100, 256), B=48)))
     return max(errs), timed
 
 
 def bwd_bound_ms(a, W2, valid, pooled, cnt):
-    """Least time for the pool backward on these inputs. Operations: the
-    recompute of every valid pair (K·(2+2B), as the forward) plus, for each
-    (i, j, b) that reached a positive max at a valid i (Σ cnt there), ~6
-    per k (subtract, test, multiply-add into da and du, ReLU and
-    multiply-add into dW2). Bytes: a, u, pooled, cnt, dpool, valid, W2, b2
-    read and da, du, dW2, db2 written once."""
+    """Least time for the pool backward on these inputs (:func:`_bounds`).
+    Operations: the recompute of every valid pair (as the forward, float32
+    weights: 3 split passes) plus, for each (i, j, b) that reached a
+    positive max at a valid i (Σ cnt there), ~6 float32 operations per k
+    (subtract, test, multiply-add into da and du, ReLU and multiply-add
+    into dW2). Bytes: a, u, pooled, cnt, dpool, valid, W2, b2 read and da,
+    du, dW2, db2 written once."""
     R, S, N, K_ = a.shape
     B = W2.shape[-1]
-    nv = valid.sum(-1).double()
-    pairs = float((nv * nv).sum())
     live = (valid[..., None] > 0) & (pooled > 0)
     entries = float(cnt[live].double().sum())
-    ops = pairs * K_ * (2 + 2 * B) + entries * K_ * 6
     nbytes = 4 * (4 * a.numel() + 3 * pooled.numel() + valid.numel()
                   + 2 * (W2.numel() + R * B))
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return _bounds(_valid_pairs(valid), K_, B, 3, entries * K_ * 6, nbytes)
 
 
 def check_bwd(name, rng, a, u, W2, b2, valid, expect_ties=False,
@@ -371,6 +469,43 @@ def check_bwd(name, rng, a, u, W2, b2, valid, expect_ties=False,
     return max(errs.values())
 
 
+def device_ms_by_kernel(run, reps=20):
+    """torch.profiler's device time per call of ``run`` by kernel (ms,
+    mean over ``reps`` calls after two warm-up calls): {kernel: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0],
+            "self_device_time_total") else "self_cuda_time_total")
+    return {e.key: getattr(e, attr) / 1e3 / reps for e in events
+            if str(e.device_type).endswith("CUDA") and getattr(e, attr) > 0}
+
+
+K2_KERNELS = ("split_w", "ties", "tie_grads", "weight_reduce")
+
+
+def bwd_phase_ms(args, pooled, cnt, dpool):
+    """Device ms per call of each of K2's four kernels (the weight split,
+    the ties pass, the tie gradients, the weight sum), by torch.profiler."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd
+    by_kernel = device_ms_by_kernel(
+        lambda: pool_core_bwd(*args, pooled, cnt, dpool))
+    phases = {name: sum(ms for key, ms in by_kernel.items()
+                        if kernel_name(key) == f"{name}_kernel")
+              for name in K2_KERNELS}
+    if not all(phases.values()):
+        fail(f"the profile of K2 misses a kernel: {sorted(by_kernel)}")
+    return phases
+
+
 def quantized_inputs(rng, valid, K_=512, B=8):
     """Inputs on coarse binary grids (a, u multiples of 1/2 in [-2, 2], W2
     in {-1/4, 0, 1/4}, b2 multiples of 1/2): every product is a multiple
@@ -403,18 +538,20 @@ def kernel_bwd_phase(rng):
         errs.append(check_bwd(name, rng, *args))
         pooled, cnt = pool_core_fwd(*args)
         dpool = torch.randn_like(pooled)
-        bound, by = bwd_bound_ms(args[0], args[2], args[4], pooled, cnt)
+        bound = bwd_bound_ms(args[0], args[2], args[4], pooled, cnt)
         ms = time_ms(lambda: pool_core_bwd(*args, pooled, cnt, dpool))
         ms_in = time_ms(lambda: pool_core_bwd(*args, pooled, cnt, dpool,
                                               weight_grads=False))
         plain_ms = time_ms(lambda: pool_core_bwd_plain(*args, pooled, cnt,
                                                        dpool),
                            reps=5, warmup=1)
-        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by)
+        phases = bwd_phase_ms(args, pooled, cnt, dpool)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, phases=phases, **bound)
         print(f"kernel bwd {name} time: kernel_ms={ms:.4f} "
               f"inputs_only_ms={ms_in:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound:.4f} ({by}) kernel/bound={ms / bound:.2f}")
+              f"{_bound_text(bound)} kernel/bound={ms / bound['bound_ms']:.2f}"
+              " phases_ms " + " ".join(f"{k}={v:.4f}"
+                                       for k, v in phases.items()))
         del pooled, cnt, dpool, args
         torch.cuda.empty_cache()
     errs.append(check_bwd("R2_B16", rng, *pool_inputs(
@@ -439,6 +576,9 @@ def kernel_bwd_phase(rng):
     errs.append(check_bwd("exact_inputs_B48", rng, *quantized_inputs(
         rng, realistic_valid(rng, 8, 64, 20, 64), B=48), expect_ties=True,
         exact=True))
+    # wider than the tie-gradient pass stages in shared memory
+    errs.append(check_bwd("wide_N256_B48", rng, *pool_inputs(
+        rng, realistic_valid(rng, 4, 256, 100, 256), B=48)))
     return max(errs), timed
 
 
@@ -1283,9 +1423,14 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.parent / f"{path.name}.log"
+        fn = ""
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_name(line) or ""
+            elif "registers" in line or "spill" in line:
+                print(f"build {name} {fn}: {line.strip()}")
+
+    hmma = sass_hmma(libs)
 
     rng = np.random.default_rng(0)
     max_err, timed = kernel_phase(rng)
@@ -1341,13 +1486,25 @@ def main():
                           "D_encoder_T20_B8192_H48")
     k56_shape = "D_encoder_T20_B8192_D16_H48"
     d_lib = lstm_library["D_encoder_T20_B8192_H48"]
+    def pool_more(t, timed_shapes, kernel):
+        return dict(bound_f32_ms=t["bound_f32_ms"],
+                    bound_tc_ms=t["bound_tc_ms"], bound_unit=t["bound_unit"],
+                    shapes=timed_shapes,
+                    hmma=None if hmma is None else {
+                        f: c for f, c in hmma.items() if f.startswith(kernel)})
+
     record = {"kernels": [
         entry("pool_core_fwd", "grouptraj_torch/csrc/pool_core_fwd.cu",
               "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
-              timed["S64_N64_B8"]),
+              timed["S64_N64_B8"],
+              **pool_more(timed["S64_N64_B8"], timed,
+                          "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
               "grouptraj/ops/pallas_pool.py:206", bwd_err, "S128_N64_B48",
-              bwd_timed["S128_N64_B48"]),
+              bwd_timed["S128_N64_B48"],
+              phases=bwd_timed["S128_N64_B48"]["phases"],
+              **pool_more(bwd_timed["S128_N64_B48"], bwd_timed,
+                          "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",
               "grouptraj/ops/pallas_fused.py:118", k3_err, k3_shape,
               lstm_timed[k3_shape]["fwd"],

@@ -20,34 +20,37 @@
 // dq is sparse: for each (i, b) only the cnt[i,b] tying j are non-zero,
 // usually one, and none where the max is the ReLU's 0. The TPU kernel
 // multiplies the dense [TI*TJ, 128] dq block because its matrix unit makes
-// that free; on CUDA cores the dense dq @ W2^T and h1^T dq would cost twice
-// the forward on top of the recompute. So this design recomputes o, records
+// that free; here the dense dq @ W2^T and h1^T dq would cost twice the
+// forward on top of the recompute. So this design recomputes o, records
 // WHICH j tie, and only then touches the K axis for those entries:
 //
+// 0. split_w_kernel (pool_core.cuh): W2 into the hi/lo fragments of the
+//    tile, as the forward does.
 // 1. ties: the forward's grid and tile (pool_core.cuh, so o is bit-equal
 //    to the forward's and the == test is exact). A thread that finds
 //    o == pooled, o > 0 at valid i sets bit j of ties[g,i,b,:] and bit i of
 //    tiesT[g,j,b,:] with atomicOr (exact in any order). It also recounts
 //    every o == pooled, zeros included, which must equal the forward's cnt.
-// 2. rows: one block per (scene, pedestrian, side). The du side walks the
-//    set bits j of ties[g,i,:,:], the da side the set bits i of
-//    tiesT[g,j,:,:]; each thread owns four k and adds gd W2[k,b] [z > 0] in
-//    a fixed order (b, then partner ascending), reading W2 from a [B, K]
-//    transpose the wrapper passes so that the loads are contiguous. Every
-//    row is written, so rows without work come out as zeros.
-// 3. weights: one block per (scene, b) sums relu(z) gd over the scene's
-//    ties into a per-scene partial [g, b, K] (and the db2 partial); a last
-//    kernel adds the S partials of each replica in scene order.
+// 2. tie_grads: one block of 16 warps per (scene, 128 k) stages the
+//    scene's a and u rows, W2's columns and gd in shared memory (a scene
+//    too wide for it, N > 164 at B=48, reads them from L2 instead) and
+//    walks the scene's set bits: du rows over ties (b, then j ascending), da
+//    rows over tiesT (b, then i ascending), and per column b the scene's
+//    partial dW2 and db2 (i, then j ascending). Every row is written, so
+//    rows without work come out as zeros.
+// 3. weight_reduce: the S partials of each replica added in scene order.
 //
 // No float atomics: every sum has a fixed order, so the result is the same
 // from run to run.
 //
-// Bound on an H100: the recompute is the forward's n_pairs * K * (2 + 2B)
-// float32 operations (67 TFLOP/s); the tie entries add ~6 K each, a few
-// percent. The bytes are a, u, pooled, cnt, dpool read and da, du written
-// once (4 * S * N * K * 4 bytes dominate) at 3.35 TB/s. At S=64, N=64,
-// K=512, B=8 fully valid: 2.4 GOP (36 us) against 33.6 MB (10 us) -- bound
-// by operations.
+// Bound on an H100: the recompute is the forward's (pool_core_fwd.cu: the
+// pair products in 3xTF32 on the tensor cores beside the subtract, ReLU and
+// split of every (pair, k) on the CUDA cores); the tie entries add ~6 K
+// float32 operations each, a few percent. The bytes are a, u, pooled, cnt,
+// dpool read and da, du written once (4 * S * N * K * 4 bytes dominate) at
+// 3.35 TB/s. At S=64, N=64, K=512 fully valid: 10 us of split and ReLU and
+// 34 MB (10 us) against 13 us of mma at B=8 and 78 us at B=48 -- bound by
+// the tensor cores.
 
 #include <stdint.h>
 
@@ -59,206 +62,284 @@ using namespace pool_core;
 
 // ---------------------------------------------------------------- 1. ties
 
-__global__ void __launch_bounds__(kThreads)
+// The forward's blocks and tile (pool_core.cuh), f32 weights only.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, min_blocks(NT))
 ties_kernel(const float* __restrict__ a, const float* __restrict__ u,
-            const float* __restrict__ w2, const float* __restrict__ b2,
+            const float* __restrict__ wf, const float* __restrict__ b2,
             const float* __restrict__ valid, const float* __restrict__ pooled,
             uint32_t* __restrict__ ties, uint32_t* __restrict__ tiesT,
-            float* __restrict__ recount, int S, int N, int K, int B, int NW) {
+            float* __restrict__ recount, int S, int N, int K, int B, int NW,
+            int col0) {
   extern __shared__ float4 smem4[];
-  const Smem sm = carve(reinterpret_cast<float*>(smem4), K);
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sv = ring + kStages * stage_floats(NT);
   __shared__ int s_n;
-  __shared__ float s_b[kBC];
+  __shared__ float s_b[8 * NT];
 
   const int g = blockIdx.x;  // r * S + s
   const int r = g / S;
-  const int i_tile = blockIdx.y * kRowsPerBlock;
-  const int b0 = blockIdx.z * kBC;
-  const int nb = min(kBC, B - b0);
+  const int i_tile = blockIdx.y * kTI;
+  const int b0 = col0 + blockIdx.z * kColsMax;
+  const int nb = min(8 * NT, B - b0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row0 = (size_t)g * N;
 
-  const int n = scene_extent(valid + row0, sm.sv, &s_n, N);
+  const int n = scene_extent(valid + row0, sv, &s_n, N);
 
   if (i_tile >= n) {  // past the extent: no ties (the bit sets start zeroed)
     if (recount != nullptr) {
-      const int rows = min(kRowsPerBlock, N - i_tile);
+      const int rows = min(kTI, N - i_tile);
       for (int t = tid; t < rows * nb; t += kThreads)
         recount[(row0 + i_tile + t / nb) * B + b0 + t % nb] = 0.f;
     }
     return;
   }
+  stage_bias<NT>(s_b, b2, r, B, b0, nb);
 
-  stage_weights(sm.sw, s_b, w2, b2, r, K, B, b0, nb);
-
-  const int i0 = i_tile + warp * kRowsPerWarp;
-  const bool warp_active = i0 < n;
-  const Rows urow = warp_rows(u, row0, i0, N, K);
-
-  // the forward's max per (row, b); -1 where there is none, which no o >= 0
-  // equals
-  float p[kRowsPerWarp][kBC], c[kRowsPerWarp][kBC];
-  bool vi[kRowsPerWarp];
+  // the forward's max at (i, 8t + cb + e); -1 where there is none, which no
+  // o >= 0 equals
+  const int i = i_tile + (lane >> 2), cb = 2 * (lane & 3);
+  const bool vi = i < n && sv[i] > 0.f;
+  float p[NT][2], c[NT][2];
 #pragma unroll
-  for (int ii = 0; ii < kRowsPerWarp; ++ii) {
-    const int i = i0 + ii;
-    vi[ii] = i < n && sm.sv[i] > 0.f;
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int b = 0; b < kBC; ++b) {
-      p[ii][b] = (i < n && b < nb) ? __ldg(pooled + (row0 + i) * B + b0 + b)
-                                   : -1.f;
-      c[ii][b] = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * t + cb + e;
+      p[t][e] = (i < n && col < nb) ? __ldg(pooled + (row0 + i) * B + b0 + col)
+                                    : -1.f;
+      c[t][e] = 0.f;
     }
-  }
 
-  for (int jc = 0; jc < n; jc += kJ) {
-    __syncthreads();  // the previous chunk is consumed (and sw/s_b staged)
-    stage_a(sm.sa, a + (row0 + jc) * K, min(kJ, n - jc), K);
-    __syncthreads();
-    const int j = jc + lane;
-    if (!warp_active || j >= n || !(sm.sv[j] > 0.f)) continue;
-
-    float o[kRowsPerWarp][kBC];
-    pair_tile(o, sm.sa + lane * (K + kPad), sm.sw, s_b, urow, K);
+  // a pass's sums -> its pair values -> the recount and the tie bits
+  auto match = [&](int pass, double (&acc)[NT][4]) {
 #pragma unroll
-    for (int ii = 0; ii < kRowsPerWarp; ++ii)
+    for (int h = 0; h < 2; ++h) {  // h = 0: j_a, h = 1: j_b
+      const int j = pass * kJB + warp * kJW + h;
+      if (!(j < n && sv[j] > 0.f)) continue;
 #pragma unroll
-      for (int b = 0; b < kBC; ++b) {
-        if (o[ii][b] != p[ii][b]) continue;
-        c[ii][b] += 1.f;
-        if (o[ii][b] > 0.f && vi[ii]) {
-          const int i = i0 + ii;
-          atomicOr(ties + ((row0 + i) * B + b0 + b) * NW + (j >> 5),
-                   1u << (j & 31));
-          atomicOr(tiesT + ((row0 + j) * B + b0 + b) * NW + (i >> 5),
-                   1u << (i & 31));
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * t + cb + e;
+          const float o = pair_value(acc[t][2 * h + e], s_b[col]);
+          if (o != p[t][e]) continue;
+          c[t][e] += 1.f;
+          if (o > 0.f && vi) {
+            atomicOr(ties + ((row0 + i) * B + b0 + col) * NW + (j >> 5),
+                     1u << (j & 31));
+            atomicOr(tiesT + ((row0 + j) * B + b0 + col) * NW + (i >> 5),
+                     1u << (i & 31));
+          }
         }
-      }
-  }
+    }
+  };
+  pair_passes<NT, true>(a + row0 * K, u + row0 * K,
+                        wf + r * w_frag_floats(K, B), n, K, (B + 7) / 8,
+                        b0 / 8, i_tile, ring, match);
 
   if (recount == nullptr) return;
+  // sum the warps' counts through the ring, now free, in warp order
+  float* mc = ring;  // [kWarps][NT][32][2]
 #pragma unroll
-  for (int ii = 0; ii < kRowsPerWarp; ++ii)
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int b = 0; b < kBC; ++b)
+    for (int e = 0; e < 2; ++e)
+      mc[((warp * NT + t) * 32 + lane) * 2 + e] = c[t][e];
+  __syncthreads();
+  for (int sl = tid; sl < NT * 64; sl += kThreads) {
+    float C = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        c[ii][b] += __shfl_xor_sync(0xffffffffu, c[ii][b], off);
-  if (lane == 0) {
-#pragma unroll
-    for (int ii = 0; ii < kRowsPerWarp; ++ii) {
-      const int i = i0 + ii;
-      if (i >= N) break;
-#pragma unroll
-      for (int b = 0; b < kBC; ++b) {
-        if (b >= nb) break;
-        recount[(row0 + i) * B + b0 + b] = i < n ? c[ii][b] : 0.f;
-      }
-    }
+    for (int w = 0; w < kWarps; ++w) C += mc[w * NT * 64 + sl];
+    const int ln = (sl >> 1) & 31;
+    const int ii = i_tile + (ln >> 2);
+    const int col = 8 * (sl >> 6) + 2 * (ln & 3) + (sl & 1);
+    if (ii < N && col < nb)
+      recount[(row0 + ii) * B + b0 + col] = ii < n ? C : 0.f;
   }
 }
 
-// ---------------------------------------------------------------- 2. rows
+// ------------------------------------------------- 2. the tie entries
 
-constexpr int kRowThreads = 128;
+constexpr int kRowThreads = 128;        // weight_reduce_kernel
+constexpr int kGradThreads = 512;
+constexpr int kGradWarps = kGradThreads / 32;
+constexpr int kGradK = 4 * 32;          // k per block: four per lane
+constexpr size_t kGradSmemMax = 220 * 1024;  // staged rows up to this; the
+                                             // H100 gives a block 227 KB
 
-// side 0: du[g,row,:] from ties (partners are j); side 1: da[g,row,:] from
-// tiesT (partners are i). Dynamic shared memory: B * NW words.
-__global__ void __launch_bounds__(kRowThreads)
-rows_kernel(const float* __restrict__ a, const float* __restrict__ u,
-            const float* __restrict__ w2t, const float* __restrict__ cnt,
-            const float* __restrict__ dpool,
-            const uint32_t* __restrict__ ties,
-            const uint32_t* __restrict__ tiesT, float* __restrict__ da,
-            float* __restrict__ du, int S, int N, int K, int B, int NW) {
-  extern __shared__ uint32_t s_bits[];  // [B][NW]
-  const int g = blockIdx.x, row = blockIdx.y, side = blockIdx.z;
-  const int r = g / S;
-  const int tid = threadIdx.x;
+// Dynamic shared memory of tie_grads_kernel with the scene staged: its a
+// and u rows and W2's columns for the block's 128 k, gd per (i, b), the
+// valid flags.
+inline size_t grads_staged_bytes(int N, int B) {
+  return sizeof(float) *
+         ((size_t)2 * N * kGradK + (size_t)B * kGradK + (size_t)N * B + N);
+}
+
+// Whether a block stages the scene (it fits in kGradSmemMax); otherwise it
+// reads the rows, W2 and gd from device memory, with the same sums in the
+// same order.
+inline bool grads_staged(int N, int B) {
+  return grads_staged_bytes(N, B) <= kGradSmemMax;
+}
+
+inline size_t grads_smem_bytes(int N, int B) {
+  return grads_staged(N, B) ? grads_staged_bytes(N, B) : sizeof(float) * N;
+}
+
+// The scene's tie entries for k = 128 * blockIdx.y + 4 * lane .. + 3, in
+// three walks over the bit sets, rows and columns spread over 16 warps:
+//   du[i] = sum over b, then j ascending in ties[i, b], of
+//           -gd[i, b] W2[k, b] [a_j - u_i > 0]
+//   da[j] = sum over b, then i ascending in tiesT[j, b], of
+//           gd[i, b] W2[k, b] [a_j - u_i > 0]
+//   dw2p[g, b] = sum over i, then j ascending, of gd[i, b] relu(a_j - u_i)
+//   db2p[g, b] = sum over i of (ties of (i, b)) gd[i, b]   (blockIdx.y == 0)
+// with gd = dpool / max(cnt, 1). With kStaged the block first copies the
+// scene's rows below its extent, W2's columns and gd to shared memory, so
+// an entry costs shared loads only; scenes too wide for that read them
+// from device memory (L2) instead. A warp fetches 32 bit-set words at once
+// (a lane each) and walks the non-zero ones in order by ballot and
+// shuffle. Every row below N is written (zeros where there is no entry);
+// the weight walk is skipped when dw2p is null.
+template <bool kStaged>
+__global__ void __launch_bounds__(kGradThreads)
+tie_grads_kernel(const float* __restrict__ a, const float* __restrict__ u,
+                 const float* __restrict__ w2t, const float* __restrict__ valid,
+                 const float* __restrict__ cnt, const float* __restrict__ dpool,
+                 const uint32_t* __restrict__ ties,
+                 const uint32_t* __restrict__ tiesT, float* __restrict__ da,
+                 float* __restrict__ du, float* __restrict__ dw2p,
+                 float* __restrict__ db2p, int S, int N, int K, int B,
+                 int NW) {
+  extern __shared__ float4 smem4[];
+  float* a_s = reinterpret_cast<float*>(smem4);  // [N][kGradK] (kStaged)
+  float* u_s = a_s + (size_t)N * kGradK;         // [N][kGradK]
+  float* w_s = u_s + (size_t)N * kGradK;         // [B][kGradK]
+  float* gd_s = w_s + (size_t)B * kGradK;        // [N][B]
+  float* sv = kStaged ? gd_s + (size_t)N * B : a_s;  // [N]
+  __shared__ int s_n;
+  const int g = blockIdx.x, r = g / S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.y * kGradK, kk = 4 * lane;
+  const bool kin = k0 + kk < K;  // K % 4 == 0: all four k or none
   const size_t row0 = (size_t)g * N;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* a_g = a + row0 * K + k0;  // the block's k of row 0
+  const float* u_g = u + row0 * K + k0;
+  const float* w_g = w2t + (size_t)r * B * K + k0;
 
-  const uint32_t* bits = (side ? tiesT : ties) + (row0 + row) * B * NW;
-  for (int t = tid; t < B * NW; t += kRowThreads) s_bits[t] = bits[t];
-  __syncthreads();
+  // the lane's four k of row `row` (staged: of s; else of the rows at g)
+  auto row4 = [&](const float* s, const float* gr, int row) -> float4 {
+    if (kStaged) return reinterpret_cast<const float4*>(s + row * kGradK)[lane];
+    return kin ? __ldg(reinterpret_cast<const float4*>(gr + (size_t)row * K) +
+                       lane)
+               : zero;
+  };
+  auto gd_at = [&](int i, int b) -> float {
+    if (kStaged) return gd_s[i * B + b];
+    const size_t q = (row0 + i) * B + b;
+    return dpool[q] / fmaxf(cnt[q], 1.f);
+  };
 
-  const float* own = (side ? a : u) + (row0 + row) * K;
-  const float* others = (side ? u : a) + row0 * K;
-  float* out = (side ? da : du) + (row0 + row) * K;
-  const float* wt = w2t + (size_t)r * B * K;  // W2 transposed: [B][K]
-  const float sign = side ? 1.f : -1.f;
+  const int n = scene_extent(valid + row0, sv, &s_n, N);
+  const int nw = (n + 31) / 32;  // words that can hold a set bit
+  if (kStaged) {
+    for (int q = tid; q < n * 32; q += kGradThreads) {
+      const int row = q / 32, k = k0 + 4 * (q % 32);
+      const size_t off = (row0 + row) * K + k;
+      reinterpret_cast<float4*>(a_s)[q] =
+          k < K ? *reinterpret_cast<const float4*>(a + off) : zero;
+      reinterpret_cast<float4*>(u_s)[q] =
+          k < K ? *reinterpret_cast<const float4*>(u + off) : zero;
+    }
+    for (int q = tid; q < B * 32; q += kGradThreads) {
+      const int b = q / 32, k = k0 + 4 * (q % 32);
+      reinterpret_cast<float4*>(w_s)[q] =
+          k < K ? *reinterpret_cast<const float4*>(
+                      w2t + ((size_t)r * B + b) * K + k)
+                : zero;
+    }
+    for (int q = tid; q < n * B; q += kGradThreads)
+      gd_s[q] = dpool[row0 * B + q] / fmaxf(cnt[row0 * B + q], 1.f);
+    __syncthreads();
+  }
 
-  for (int k = tid * 4; k < K; k += kRowThreads * 4) {
-    const float4 ov = *reinterpret_cast<const float4*>(own + k);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int b = 0; b < B; ++b)
-      for (int w = 0; w < NW; ++w) {
-        uint32_t word = s_bits[b * NW + w];
-        while (word) {
-          const int partner = w * 32 + __ffs(word) - 1;
-          word &= word - 1;
-          const int i = side ? partner : row;
-          const size_t e = (row0 + i) * B + b;
-          const float gd = sign * dpool[e] / fmaxf(cnt[e], 1.f);
-          const float4 pv =
-              *reinterpret_cast<const float4*>(others + (size_t)partner * K + k);
-          // z = a_j - u_i: the own row is a_j on the da side, u_i on the du
-          const float z[4] = {side ? ov.x - pv.x : pv.x - ov.x,
-                              side ? ov.y - pv.y : pv.y - ov.y,
-                              side ? ov.z - pv.z : pv.z - ov.z,
-                              side ? ov.w - pv.w : pv.w - ov.w};
-          const float4 wv =
-              *reinterpret_cast<const float4*>(wt + (size_t)b * K + k);
-          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+  for (int side = 0; side < 2; ++side) {  // 0: du over ties, 1: da over tiesT
+    const float* own_s = side ? a_s : u_s;
+    const float* other_s = side ? u_s : a_s;
+    const float* own_g = side ? a_g : u_g;
+    const float* other_g = side ? u_g : a_g;
+    for (int row = warp; row < N; row += kGradWarps) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < n) {
+        const float4 ov = row4(own_s, own_g, row);
+        const float o[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t* bits = (side ? tiesT : ties) + (row0 + row) * B * NW;
+        const int nq = B * nw;  // words (b, wd) in order, 32 at a time
+        for (int q0 = 0; q0 < nq; q0 += 32) {
+          const int q = q0 + lane;
+          const uint32_t mine = q < nq ? bits[q / nw * NW + q % nw] : 0u;
+          uint32_t live = __ballot_sync(0xffffffffu, mine != 0u);
+          while (live) {
+            const int src = __ffs(live) - 1;
+            live &= live - 1;
+            uint32_t word = __shfl_sync(0xffffffffu, mine, src);
+            const int b = (q0 + src) / nw, base = (q0 + src) % nw * 32;
+            const float4 wv = row4(w_s, w_g, b);
+            const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+            while (word) {
+              const int partner = base + __ffs(word) - 1;
+              word &= word - 1;
+              const float gd = side ? gd_at(partner, b) : -gd_at(row, b);
+              const float4 pv = row4(other_s, other_g, partner);
+              const float p[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            if (z[kk] > 0.f) acc[kk] += gd * w[kk];
+              for (int c = 0; c < 4; ++c) {
+                const float z = side ? o[c] - p[c] : p[c] - o[c];  // a_j - u_i
+                if (z > 0.f) acc[c] += gd * w[c];
+              }
+            }
+          }
         }
       }
-    *reinterpret_cast<float4*>(out + k) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
+      if (kin)
+        *reinterpret_cast<float4*>((side ? da : du) + (row0 + row) * K + k0 +
+                                   kk) = make_float4(acc[0], acc[1], acc[2],
+                                                     acc[3]);
+    }
   }
-}
 
-// ------------------------------------------------------------- 3. weights
-
-// One block per (scene g, column b): dw2p[g,b,:] and db2p[g,b]. Dynamic
-// shared memory: N * NW words (the ties of column b, every row i).
-__global__ void __launch_bounds__(kRowThreads)
-weight_partials_kernel(const float* __restrict__ a, const float* __restrict__ u,
-                       const float* __restrict__ cnt,
-                       const float* __restrict__ dpool,
-                       const uint32_t* __restrict__ ties,
-                       float* __restrict__ dw2p, float* __restrict__ db2p,
-                       int N, int K, int B, int NW) {
-  extern __shared__ uint32_t s_bits[];  // [N][NW]
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)g * N;
-
-  for (int t = tid; t < N * NW; t += kRowThreads)
-    s_bits[t] = ties[((row0 + t / NW) * B + b) * NW + t % NW];
-  __syncthreads();
-
-  float* out = dw2p + ((size_t)g * B + b) * K;
-  for (int k = tid * 4; k < K; k += kRowThreads * 4) {
+  if (dw2p == nullptr) return;
+  for (int b = warp; b < B; b += kGradWarps) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < N; ++i) {
-      float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float gd = 0.f;
-      bool loaded = false;
-      for (int w = 0; w < NW; ++w) {
-        uint32_t word = s_bits[i * NW + w];
+    float db = 0.f;
+    const int nq = n * nw;  // words (i, wd) in order, 32 at a time
+    const uint32_t* bits = ties + (row0 * B + b) * NW;  // row i at i * B * NW
+    int cur_i = -1, hits = 0;
+    for (int q0 = 0; q0 < nq; q0 += 32) {
+      const int q = q0 + lane;
+      const uint32_t mine =
+          q < nq ? bits[(size_t)(q / nw) * B * NW + q % nw] : 0u;
+      uint32_t live = __ballot_sync(0xffffffffu, mine != 0u);
+      while (live) {
+        const int src = __ffs(live) - 1;
+        live &= live - 1;
+        uint32_t word = __shfl_sync(0xffffffffu, mine, src);
+        const int i = (q0 + src) / nw, base = (q0 + src) % nw * 32;
+        if (i != cur_i) {  // row cur_i is done: its share of db2
+          if (hits) db += (float)hits * gd_at(cur_i, b);
+          cur_i = i;
+          hits = 0;
+        }
+        hits += __popc(word);
+        const float gd = gd_at(i, b);
+        const float4 uv = row4(u_s, u_g, i);
         while (word) {
-          const int j = w * 32 + __ffs(word) - 1;
+          const int j = base + __ffs(word) - 1;
           word &= word - 1;
-          if (!loaded) {
-            const size_t e = (row0 + i) * B + b;
-            gd = dpool[e] / fmaxf(cnt[e], 1.f);
-            uv = *reinterpret_cast<const float4*>(u + (row0 + i) * K + k);
-            loaded = true;
-          }
-          const float4 av =
-              *reinterpret_cast<const float4*>(a + (row0 + j) * K + k);
+          const float4 av = row4(a_s, a_g, j);
           acc[0] += gd * fmaxf(av.x - uv.x, 0.f);
           acc[1] += gd * fmaxf(av.y - uv.y, 0.f);
           acc[2] += gd * fmaxf(av.z - uv.z, 0.f);
@@ -266,23 +347,15 @@ weight_partials_kernel(const float* __restrict__ a, const float* __restrict__ u,
         }
       }
     }
-    *reinterpret_cast<float4*>(out + k) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-  }
-
-  if (tid == 0) {
-    float db = 0.f;
-    for (int i = 0; i < N; ++i) {
-      int hits = 0;
-      for (int w = 0; w < NW; ++w) hits += __popc(s_bits[i * NW + w]);
-      if (hits) {
-        const size_t e = (row0 + i) * B + b;
-        db += (float)hits * (dpool[e] / fmaxf(cnt[e], 1.f));
-      }
-    }
-    db2p[(size_t)g * B + b] = db;
+    if (hits) db += (float)hits * gd_at(cur_i, b);
+    if (kin)
+      *reinterpret_cast<float4*>(dw2p + ((size_t)g * B + b) * K + k0 + kk) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (blockIdx.y == 0 && lane == 0) db2p[(size_t)g * B + b] = db;
   }
 }
+
+// ------------------------------------------------------------- 3. weights
 
 // dw2[r,k,b] = sum_s dw2p[r*S+s,b,k] and db2[r,b] = sum_s db2p[r*S+s,b], in
 // scene order. Grid (ceil(K / threads), B, R).
@@ -310,53 +383,77 @@ weight_reduce_kernel(const float* __restrict__ dw2p,
 extern "C" {
 
 // Shared memory one block of the ties pass needs (the forward's tile).
-size_t pool_core_bwd_smem_bytes(int N, int K) { return smem_bytes(N, K); }
+size_t pool_core_bwd_smem_bytes(int N, int B) { return smem_bytes(N, B); }
+
+// Shared memory one block of the tie-gradient pass needs.
+size_t pool_core_bwd_grads_smem_bytes(int N, int B) {
+  return grads_smem_bytes(N, B);
+}
+
+// Floats of the split-W2 scratch one replica needs.
+size_t pool_core_bwd_w_frag_floats(int K, int B) {
+  return w_frag_floats(K, B);
+}
 
 // Words of one tie bit set: ceil(N / 32).
 int pool_core_bwd_tie_words(int N) { return (N + 31) / 32; }
 
 // a, u, da, du: [R*S, N, K] f32; w2: [R, K, B], its transpose w2t:
 // [R, B, K], b2: [R, B] f32; valid: [R*S, N] f32; pooled, cnt, dpool:
-// [R*S, N, B] f32. Scratch from the caller: ties, tiesT [R*S, N, B, NW] uint32, ZEROED; dw2p [R*S, B, K] and
-// db2p [R*S, B] f32 (unused when dw2 is null). dw2 [R, K, B] and db2 [R, B]
-// may both be null: the weight gradients are then skipped. recount
-// [R*S, N, B] f32 may be null. All contiguous, K % 4 == 0, 16-byte aligned.
-// Returns the CUDA error of the first launch that failed (0 = cudaSuccess).
+// [R*S, N, B] f32. Scratch from the caller: ties, tiesT [R*S, N, B, NW]
+// uint32, ZEROED; dw2p [R*S, B, K] and db2p [R*S, B] f32 (unused when dw2
+// is null); wf: R * pool_core_bwd_w_frag_floats(K, B) f32 for the split
+// W2. dw2 [R, K, B] and db2 [R, B] may both be null: the weight gradients
+// are then skipped. recount [R*S, N, B] f32 may be null. All contiguous,
+// K % 4 == 0, 16-byte aligned. Returns the CUDA error of the first call
+// that failed (0 = cudaSuccess).
 int pool_core_bwd(const float* a, const float* u, const float* w2,
                   const float* w2t, const float* b2, const float* valid,
-                  const float* pooled,
-                  const float* cnt, const float* dpool, uint32_t* ties,
-                  uint32_t* tiesT, float* dw2p, float* db2p, float* da,
-                  float* du, float* dw2, float* db2, float* recount, int R,
-                  int S, int N, int K, int B, int device, void* stream) {
+                  const float* pooled, const float* cnt, const float* dpool,
+                  uint32_t* ties, uint32_t* tiesT, float* dw2p, float* db2p,
+                  float* da, float* du, float* dw2, float* db2,
+                  float* recount, float* wf, int R, int S, int N, int K,
+                  int B, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R * S == 0 || N == 0 || B == 0 || K == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = R * S, NW = (N + 31) / 32;
 
-  const size_t smem = smem_bytes(N, K);
-  err = cudaFuncSetAttribute(
-      ties_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if ((err = split_w<float>(w2, wf, R, K, B, st)) != cudaSuccess)
+    return (int)err;
+  err = for_column_launches(B, [&](auto nt, int col0, int groups) {
+    constexpr int NT = decltype(nt)::value;
+    auto kernel = ties_kernel<NT>;
+    const size_t smem =
+        sizeof(float) * (kStages * (size_t)stage_floats(NT) + N);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(G, (N + kTI - 1) / kTI, groups), kThreads, smem, st>>>(
+        a, u, wf, b2, valid, pooled, ties, tiesT, recount, S, N, K, B, NW,
+        col0);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  ties_kernel<<<dim3(G, (N + kRowsPerBlock - 1) / kRowsPerBlock,
-                     (B + kBC - 1) / kBC),
-                kThreads, smem, st>>>(a, u, w2, b2, valid, pooled, ties, tiesT,
-                                      recount, S, N, K, B, NW);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  rows_kernel<<<dim3(G, N, 2), kRowThreads, sizeof(uint32_t) * B * NW, st>>>(
-      a, u, w2t, cnt, dpool, ties, tiesT, da, du, S, N, K, B, NW);
+  auto grads = grads_staged(N, B) ? tie_grads_kernel<true>
+                                  : tie_grads_kernel<false>;
+  const size_t gsmem = grads_smem_bytes(N, B);
+  err = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gsmem);
+  if (err != cudaSuccess) return (int)err;
+  grads<<<dim3(G, (K + kGradK - 1) / kGradK), kGradThreads, gsmem, st>>>(
+      a, u, w2t, valid, cnt, dpool, ties, tiesT, da, du, dw2p, db2p, S, N, K,
+      B, NW);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  if (dw2 == nullptr) return 0;
-  weight_partials_kernel<<<dim3(G, B), kRowThreads, sizeof(uint32_t) * N * NW,
-                           st>>>(a, u, cnt, dpool, ties, dw2p, db2p, N, K, B,
-                                 NW);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  weight_reduce_kernel<<<dim3((K + kRowThreads - 1) / kRowThreads, B, R),
-                         kRowThreads, 0, st>>>(dw2p, db2p, dw2, db2, S, K, B);
-  return (int)cudaGetLastError();
+  if (dw2 != nullptr) {
+    weight_reduce_kernel<<<dim3((K + kRowThreads - 1) / kRowThreads, B, R),
+                           kRowThreads, 0, st>>>(dw2p, db2p, dw2, db2, S, K,
+                                                 B);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 const char* pool_core_bwd_error_string(int err) {

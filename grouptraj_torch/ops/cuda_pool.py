@@ -38,10 +38,12 @@ _MAX_SMEM = 232448       # bytes of shared memory one H100 block can use
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pool_core_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pool_core_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.pool_core_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.pool_core_fwd.restype = ctypes.c_int
-    lib.pool_core_fwd_smem_bytes.argtypes = [i, i]
+    lib.pool_core_fwd_smem_bytes.argtypes = [i, i]   # N, B
     lib.pool_core_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.pool_core_w_frag_floats.argtypes = [i, i]    # K, B
+    lib.pool_core_w_frag_floats.restype = ctypes.c_size_t
     lib.pool_core_fwd_error_string.argtypes = [i]
     lib.pool_core_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -51,10 +53,14 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("pool_core_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pool_core_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    lib.pool_core_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
     lib.pool_core_bwd.restype = ctypes.c_int
-    lib.pool_core_bwd_smem_bytes.argtypes = [i, i]
+    lib.pool_core_bwd_smem_bytes.argtypes = [i, i]   # N, B
     lib.pool_core_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.pool_core_bwd_w_frag_floats.argtypes = [i, i]    # K, B
+    lib.pool_core_bwd_w_frag_floats.restype = ctypes.c_size_t
+    lib.pool_core_bwd_grads_smem_bytes.argtypes = [i, i]  # N, B
+    lib.pool_core_bwd_grads_smem_bytes.restype = ctypes.c_size_t
     lib.pool_core_bwd_tie_words.argtypes = [i]
     lib.pool_core_bwd_tie_words.restype = ctypes.c_int
     lib.pool_core_bwd_error_string.argtypes = [i]
@@ -94,9 +100,9 @@ def _check(a, u, W2, b2, valid, **same_as_pooled):
     return R, S, N, K, B
 
 
-def _check_smem(smem: int, N: int, K: int) -> None:
+def _check_smem(smem: int, N: int, B: int) -> None:
     if smem > _MAX_SMEM:
-        raise ValueError(f"N={N}, K={K} need {smem} bytes of shared memory "
+        raise ValueError(f"N={N}, B={B} need {smem} bytes of shared memory "
                          f"per block, more than the {_MAX_SMEM} available")
 
 
@@ -115,13 +121,15 @@ def pool_core_fwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
     if not a.is_cuda:
         return pool_core(a, u, W2, b2, valid)
     lib = _lib()
-    _check_smem(lib.pool_core_fwd_smem_bytes(N, K), N, K)
+    _check_smem(lib.pool_core_fwd_smem_bytes(N, B), N, B)
     pooled = torch.empty((R, S, N, B), dtype=torch.float32, device=a.device)
     cnt = torch.empty_like(pooled)
+    wf = torch.empty(R * lib.pool_core_w_frag_floats(K, B),
+                     dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.pool_core_fwd(
         a.data_ptr(), u.data_ptr(), W2.data_ptr(), b2.data_ptr(),
-        valid.data_ptr(), pooled.data_ptr(), cnt.data_ptr(),
+        valid.data_ptr(), wf.data_ptr(), pooled.data_ptr(), cnt.data_ptr(),
         R, S, N, K, B, int(W2.dtype == torch.bfloat16),
         _device_index(a), stream)
     if err:
@@ -162,7 +170,8 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
                                                cnt, dpool, debug=debug)
         return (da, du, dW2, db2) if weight_grads else (da, du, None, None)
     lib = _bwd_lib()
-    _check_smem(lib.pool_core_bwd_smem_bytes(N, K), N, K)
+    _check_smem(max(lib.pool_core_bwd_smem_bytes(N, B),
+                    lib.pool_core_bwd_grads_smem_bytes(N, B)), N, B)
     dev = a.device
     NW = lib.pool_core_bwd_tie_words(N)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -177,6 +186,7 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
         db2p = torch.empty((R * S, B), **f32)
     if debug is not None:
         recount = torch.empty((R, S, N, B), **f32)
+    wf = torch.empty(R * lib.pool_core_bwd_w_frag_floats(K, B), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pool_core_bwd(
@@ -184,7 +194,8 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
         b2.data_ptr(), valid.data_ptr(), pooled.data_ptr(), cnt.data_ptr(),
         dpool.data_ptr(), bits[0].data_ptr(), bits[1].data_ptr(),
         ptr(dW2p), ptr(db2p), da.data_ptr(), du.data_ptr(), ptr(dW2),
-        ptr(db2), ptr(recount), R, S, N, K, B, _device_index(a), stream)
+        ptr(db2), ptr(recount), wf.data_ptr(), R, S, N, K, B,
+        _device_index(a), stream)
     if err:
         raise RuntimeError("pool_core_bwd launch failed: "
                            + lib.pool_core_bwd_error_string(err).decode())
