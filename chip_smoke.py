@@ -4,9 +4,10 @@
 
 Phases, each of which fails the run on any error:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed; the
-   count of tensor-core (HMMA) instructions in each pool kernel's SASS
-   (cuobjdump), which must not be 0 for K1's and K2's tile kernels;
+2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed, with
+   ptxas's registers and spills; the count of tensor-core (HMMA)
+   instructions in the pool kernels' and K6's SASS (cuobjdump), which must
+   not be 0 for K1's and K2's tile kernels and for any instance of K6;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
    discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
@@ -35,7 +36,8 @@ Phases, each of which fails the run on any error:
    discriminator T=20/D=16/H=48 at B=8,192 and 4,096, a cotangent on hT
    only) and at odd sizes (B=1, B=70, T=1, D=4 and 8, H=8, 16 and 64, all
    cotangents non-zero or only dhT), non-zero initial states throughout;
-   times beside the bound, and torch.nn.LSTM's forward and forward +
+   times beside the bound (K6: the float32-core and the tensor-core
+   bound), and torch.nn.LSTM's forward and forward +
    backward beside K5 and K5 + K6 at the encoder shapes;
 4. serve: the zoo checkpoint zara1_12 (the ``gat`` preset at full width)
    served at k=20 through Predictor.predict_batch on realistic scenes at
@@ -119,9 +121,14 @@ BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 
 def kernel_name(line):
-    """``pool_core_fwd_kernel<6,f32>`` from a line that names a pool
-    kernel's mangled symbol (ptxas or cuobjdump; the base name alone from a
-    profiler's demangled one); None for other kernels."""
+    """``pool_core_fwd_kernel<6,f32>`` or ``lstm_proj_bwd_kernel<16,48>``
+    from a line that names a pool kernel's or K6's mangled symbol (ptxas or
+    cuobjdump; the base name alone from a profiler's demangled one); None
+    for other kernels."""
+    m = re.search(r"(lstm_proj_bwd_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+    if m is not None:
+        return m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
+                             if m.group(2) else "")
     m = re.search(r"((?:split_w|pool_core_fwd|ties|tie_grads|weight_reduce)"
                   r"_kernel)(?:I(?:L[ib](\d+)E)?(f|13__nv_bfloat16)?E)?", line)
     if m is None:
@@ -131,17 +138,24 @@ def kernel_name(line):
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
+# libraries whose SASS sass_hmma reads, and the kernels among them that
+# must run on the tensor cores: K1's tile, K2's ties pass, K6
+HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_proj_bwd")
+HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "lstm_proj_bwd_kernel")
+
+
 def sass_hmma(libs):
     """The count of HMMA (tensor-core mma) instructions in each kernel of
-    the two pool libraries' SASS, by cuobjdump beside nvcc; fails if K1's
-    or K2's tile kernel has none. None where the toolkit has no cuobjdump."""
+    the pool libraries' and K6's SASS, by cuobjdump beside nvcc; fails if
+    K1's or K2's tile kernel or any instance of K6 has none. None where the
+    toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"sass: no cuobjdump at {tool}; HMMA count not taken")
         return None
     counts = {}
-    for lib in ("pool_core_fwd", "pool_core_bwd"):
+    for lib in HMMA_LIBS:
         sass = subprocess.run([tool, "-sass", str(libs[lib])],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -149,14 +163,15 @@ def sass_hmma(libs):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = kernel_name(line)
-                counts[fn] = 0
+                if fn is not None:
+                    counts[fn] = 0
             elif fn is not None and "HMMA" in line:
                 counts[fn] += 1
     print("sass HMMA: " + " ".join(f"{f}={c}" for f, c in counts.items()))
-    tiles = {f: c for f, c in counts.items()
-             if f.startswith(("pool_core_fwd_kernel", "ties_kernel"))}
-    if not tiles or min(tiles.values()) == 0:
-        fail("a pool tile kernel runs no tensor-core instruction (HMMA)")
+    for kernel in HMMA_KERNELS:
+        tiles = [c for f, c in counts.items() if f.startswith(kernel)]
+        if not tiles or min(tiles) == 0:
+            fail(f"{kernel} runs no tensor-core instruction (HMMA)")
     return counts
 
 
@@ -614,8 +629,8 @@ def lstm_bound_ms(kind, T, B, H, with_gx, save=False, cot=(True, True, True)):
                   + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H
                   + (4 * tbh if with_gx else 4 * H))
     t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
@@ -626,7 +641,9 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
     within LSTM_BWD_RTOL of its largest entry; all finite.
     ``backward(out)`` gives the kernel and plain backward calls on the
     forward's outputs, ``cot`` which of (dys, dhT, dcT) they are given,
-    ``bound(kind)`` the least time of 'fwd' or 'bwd'. With ``timed`` (a
+    ``bound(kind)`` the least time of 'fwd' or 'bwd' (a dict with
+    ``bound_ms`` and ``bound_by``, and for K6 both units' bounds as
+    :func:`_bounds` gives them). With ``timed`` (a
     dict) the median kernel and plain times and the bounds are stored
     under ``name``."""
     import torch
@@ -664,14 +681,14 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
     if timed is not None:
         timed[name] = {}
         for kind, (kernel, plain) in calls.items():
-            b, by = bound(kind)
             e = timed[name][kind] = dict(
                 ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
-                bound_ms=b, bound_by=by)
+                **bound(kind))
+            text = (_bound_text(e) if "bound_unit" in e else
+                    f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']})")
             print(f"kernel {label} {name} {kind} time: kernel_ms="
-                  f"{e['ms']:.4f} plain_ms={e['plain_ms']:.4f} bound_ms="
-                  f"{e['bound_ms']:.4f} ({e['bound_by']}) kernel/bound="
-                  f"{e['ms'] / e['bound_ms']:.2f}")
+                  f"{e['ms']:.4f} plain_ms={e['plain_ms']:.4f} {text} "
+                  f"kernel/bound={e['ms'] / e['bound_ms']:.2f}")
     return ferr, berr
 
 
@@ -790,22 +807,34 @@ def proj_bound_ms(kind, T, B, D, H, save=False, cot=(True, True, True)):
     """Least time for K5 (``kind='fwd'``) or K6 (``'bwd'``) on these
     shapes. Operations: the products 2*T*B*(D+H)*4H (twice that backward:
     dz @ W_hh^T, h^T dz, dz @ W_ih^T, x^T dz) plus LSTM_GATE_OPS per (step,
-    row, unit), over the float32 peak. Bytes, each once over HBM bandwidth:
-    forward w_ih, w_hh, b, xs, h0, c0 read and ys, hT, cT (and gates, cs
-    when saved) written; backward w_ih, w_hh, xs, h0, c0, ys, gates, cs and
-    the cotangents given read, dxs, dw_ih, dw_hh, db, dh0, dc0 written."""
+    row, unit). Bytes, each once over HBM bandwidth: forward w_ih, w_hh, b,
+    xs, h0, c0 read and ys, hT, cT (and gates, cs when saved) written;
+    backward w_ih, w_hh, xs, h0, c0, ys, gates, cs and the cotangents given
+    read, dxs, dw_ih, dw_hh, db, dh0, dc0 written. Forward: ``bound_ms``
+    and ``bound_by``, all operations over the float32 peak. Backward, which
+    runs its products on the tensor cores: a dict as :func:`_bounds` gives,
+    the float32-core bound beside the tensor-core one (the products' 3 TF32
+    passes over TF32_PEAK and, beside them, the gate math over FP32_PEAK),
+    each against the bytes; ``bound_ms`` is the smaller."""
     tbh, tbd, w = T * B * H, T * B * D, (D + H) * 4 * H
     if kind == "fwd":
         ops = 2 * T * B * w + LSTM_GATE_OPS["fwd"] * tbh
         floats = (w + 4 * H + tbd + 4 * B * H + tbh
                   + (5 * tbh if save else 0))
-    else:
-        ops = 4 * T * B * w + LSTM_GATE_OPS["bwd"] * tbh
-        floats = (2 * w + 4 * H + 2 * tbd + 4 * B * H + 6 * tbh
-                  + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H)
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+    products, gate_ops = 4 * T * B * w, LSTM_GATE_OPS["bwd"] * tbh
+    floats = (2 * w + 4 * H + 2 * tbd + 4 * B * H + 6 * tbh
+              + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H)
+    t_bytes = 4 * floats / HBM_BW * 1e3
+    t_f32 = (products + gate_ops) / FP32_PEAK * 1e3
+    t_tc = max(3 * products / TF32_PEAK, gate_ops / FP32_PEAK) * 1e3
+    f32, tc = max(t_f32, t_bytes), max(t_tc, t_bytes)
+    unit, t_ops = ("tensor-core", t_tc) if tc <= f32 else ("float32", t_f32)
+    return dict(bound_ms=min(f32, tc),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_unit=unit, bound_f32_ms=f32, bound_tc_ms=tc)
 
 
 def check_proj(name, gen, T, B, D, H, save=True, cot=(True, True, True),
@@ -1486,7 +1515,7 @@ def main():
                           "D_encoder_T20_B8192_H48")
     k56_shape = "D_encoder_T20_B8192_D16_H48"
     d_lib = lstm_library["D_encoder_T20_B8192_H48"]
-    def pool_more(t, timed_shapes, kernel):
+    def tc_more(t, timed_shapes, kernel):
         return dict(bound_f32_ms=t["bound_f32_ms"],
                     bound_tc_ms=t["bound_tc_ms"], bound_unit=t["bound_unit"],
                     shapes=timed_shapes,
@@ -1497,13 +1526,13 @@ def main():
         entry("pool_core_fwd", "grouptraj_torch/csrc/pool_core_fwd.cu",
               "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
               timed["S64_N64_B8"],
-              **pool_more(timed["S64_N64_B8"], timed,
+              **tc_more(timed["S64_N64_B8"], timed,
                           "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
               "grouptraj/ops/pallas_pool.py:206", bwd_err, "S128_N64_B48",
               bwd_timed["S128_N64_B48"],
               phases=bwd_timed["S128_N64_B48"]["phases"],
-              **pool_more(bwd_timed["S128_N64_B48"], bwd_timed,
+              **tc_more(bwd_timed["S128_N64_B48"], bwd_timed,
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",
               "grouptraj/ops/pallas_fused.py:118", k3_err, k3_shape,
@@ -1526,8 +1555,9 @@ def main():
               proj_timed[k56_shape]["bwd"],
               library_ms=(d_lib["library_fwd_bwd_ms"]
                           - d_lib["library_fwd_train_ms"]),
-              shapes={n: t["bwd"] for n, t in proj_timed.items()
-                      if "bwd" in t})]}
+              **tc_more(proj_timed[k56_shape]["bwd"],
+                          {n: t["bwd"] for n, t in proj_timed.items()
+                           if "bwd" in t}, "lstm_proj_bwd_kernel"))]}
     for kernel in record["kernels"]:
         if kernel["launches"] == 0:
             fail(f"{kernel['name']} was launched on no main path")

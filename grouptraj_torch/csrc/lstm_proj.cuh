@@ -1,8 +1,7 @@
 // Shared pieces of the projection-in-kernel LSTM kernels (K5 forward,
 // lstm_proj_fwd.cu; K6 backward, lstm_proj_bwd.cu) beyond those of the
-// whole-loop recurrence (lstm_fused.cuh, whose tiling both follow): the
-// staging of the input matrix W_ih [D, 4H] and the dispatch over the input
-// widths built.
+// whole-loop recurrence (lstm_fused.cuh): the forward's staging of the input
+// matrix W_ih [D, 4H] and the dispatch over the input widths built.
 
 #pragma once
 
@@ -11,10 +10,9 @@
 namespace lstm_proj {
 
 // Shared layout of the input matrix W_ih [D, 4H] as one float4 (i, f, g, o)
-// per (d, unit): element W_ih[d][g*H + j] goes to slot d*H + j (the
-// forward: lanes over j at fixed d) or, TRANSPOSED, to slot j*D + d (the
-// backward: lanes over d at fixed j), component g.
-template <int D, int H, bool TRANSPOSED>
+// per (d, unit), lanes over j at fixed d: element W_ih[d][g*H + j] goes to
+// slot d*H + j, component g.
+template <int D, int H>
 __device__ __forceinline__ void stage_input_matrix(float4* dst,
                                                    const float* __restrict__ w,
                                                    int tid, int threads) {
@@ -22,8 +20,7 @@ __device__ __forceinline__ void stage_input_matrix(float4* dst,
   for (int idx = tid; idx < 4 * D * H; idx += threads) {
     const int d = idx / (4 * H), col = idx % (4 * H);
     const int g = col / H, j = col % H;
-    const int slot = TRANSPOSED ? j * D + d : d * H + j;
-    out[slot * 4 + g] = w[idx];
+    out[(d * H + j) * 4 + g] = w[idx];
   }
 }
 

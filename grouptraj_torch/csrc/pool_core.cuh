@@ -60,7 +60,11 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "tc_tf32.cuh"
+
 namespace pool_core {
+
+using namespace tc_tf32;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
@@ -142,29 +146,6 @@ __device__ __forceinline__ void stage_bias(float* s_b, const W* __restrict__ b2,
   const int tid = threadIdx.x;
   if (tid < 8 * NT)
     s_b[tid] = tid < nb ? to_f32(b2[(size_t)r * B + b0 + tid]) : 0.f;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
-// cvt.rna.tf32.f32's rounding) by two integer operations, which issue
-// faster than the conversion; finite x only.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
 }
 
 // W2 [R, K, B] (float32 or bfloat16) -> wf [R][KS][T][32][kSlot], KS =

@@ -85,6 +85,12 @@ def _sizes(xs: torch.Tensor, w_hh: torch.Tensor) -> Tuple[int, int, int, int]:
     return (*xs.shape, w_hh.shape[0])
 
 
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it at a 16-byte aligned address (a view into
+    another tensor's storage may start anywhere)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def lstm_proj_fwd(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
                   xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
                   save: bool = False):
@@ -143,6 +149,9 @@ def lstm_proj_bwd(w_ih: torch.Tensor, w_hh: torch.Tensor, xs: torch.Tensor,
     if not w_hh.is_cuda:
         return lstm_proj_bwd_plain(w_ih, w_hh, xs, h0, c0, ys, gates, cs,
                                    dys, dhT, dcT)
+    # the kernel copies these by cp.async, 16 bytes at a time
+    xs, h0, c0, ys, gates, cs, dys = (
+        _aligned16(t) for t in (xs, h0, c0, ys, gates, cs, dys))
     lib = _bwd_lib()
     nb = -(-B // lib.lstm_proj_bwd_rows_per_block())
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,

@@ -315,7 +315,9 @@ def _proj_case(cuda, T, B, D, H, seed):
 
 
 @pytest.mark.parametrize("T,B,D,H", [(8, 100, 16, 32), (20, 70, 16, 48),
-                                     (5, 9, 4, 8), (6, 40, 8, 64)])
+                                     (5, 9, 4, 8), (6, 40, 8, 64),
+                                     (20, 8192, 16, 48), (3, 4097, 4, 8),
+                                     (4, 33, 16, 64)])
 def test_proj_kernels_match_plain(cuda, T, B, D, H):
     """K5 with and without residuals, then K6 on K5's residuals with all
     cotangents and with only dhT, against their plain versions."""
@@ -347,6 +349,20 @@ def test_proj_kernels_match_plain(cuda, T, B, D, H):
             assert x.shape == y.shape and bool(torch.isfinite(x).all())
             assert (x - y).abs().max().item() <= 1e-4 * max(
                 y.abs().max().item(), 1e-30)
+
+
+def test_proj_backward_repeats_bit_for_bit(cuda):
+    """K6 sums every partial in a fixed order and uses no float atomics:
+    two calls on the same inputs give the same bits."""
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    w_ih, w_hh, b, xs, h0, c0, (dys, dhT, dcT) = _proj_case(
+        cuda, 20, 4097, 16, 48, seed=3)
+    ys, _, _, gates, cs = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+    args = (w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT)
+    first, second = lstm_proj_bwd(*args), lstm_proj_bwd(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    assert all(x.abs().max() > 0 for x in first)
 
 
 def test_pallas_training_iteration_matches_scan(cuda):
