@@ -5,9 +5,10 @@
 Phases, each of which fails the run on any error:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed, with
-   ptxas's registers and spills; the count of tensor-core (HMMA)
-   instructions in the pool kernels' and K6's SASS (cuobjdump), which must
-   not be 0 for K1's and K2's tile kernels and for any instance of K6;
+   ptxas's registers, shared memory and spills; the count of tensor-core
+   (HMMA) instructions in the pool kernels', K4's and K6's SASS
+   (cuobjdump), which must not be 0 for K1's and K2's tile kernels and for
+   any instance of K4 or K6;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
    discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
@@ -26,9 +27,11 @@ Phases, each of which fails the run on any error:
    their plain versions at the full-width shapes of the training step and
    of serving (generator encoder T=8/B=4,096/H=32, discriminator encoder
    T=20/B=8,192/H=48, decoder T=11 at B=8,192 with residuals and at
-   B=81,920 without) and at odd sizes (B=1, B=70, T=1, H=8, 16 and 64, all
-   cotangents non-zero or only dhT); times beside the bound, and
-   torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the encoder shapes;
+   B=81,920 without) and at odd sizes (B=1, B=70, T=1, H=8, 16 and 64, a
+   ragged B=4,097 at H=8 and 64, all cotangents non-zero or only dhT);
+   times beside the bound (K4: the float32-core and the tensor-core
+   bound), and torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the
+   encoder shapes;
    then K5 (the LSTM with its input projection in the kernel,
    csrc/lstm_proj_fwd.cu) and K6 (its backward, csrc/lstm_proj_bwd.cu)
    against their plain versions at the encoders' full-width shapes
@@ -121,11 +124,14 @@ BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 
 def kernel_name(line):
-    """``pool_core_fwd_kernel<6,f32>`` or ``lstm_proj_bwd_kernel<16,48>``
-    from a line that names a pool kernel's or K6's mangled symbol (ptxas or
-    cuobjdump; the base name alone from a profiler's demangled one); None
-    for other kernels."""
-    m = re.search(r"(lstm_proj_bwd_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+    """``pool_core_fwd_kernel<6,f32>``, ``lstm_fused_bwd_kernel<48,1>``
+    (H, WITH_GX) or ``lstm_proj_bwd_kernel<16,48>`` from a line that names
+    a pool kernel's, K4's or K6's mangled symbol (ptxas or cuobjdump; the
+    base name alone from a profiler's demangled one); None for other
+    kernels."""
+    m = re.search(r"(lstm_fused_bwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
+    if m is None:
+        m = re.search(r"(lstm_proj_bwd_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
     if m is not None:
         return m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
                              if m.group(2) else "")
@@ -139,16 +145,18 @@ def kernel_name(line):
 
 
 # libraries whose SASS sass_hmma reads, and the kernels among them that
-# must run on the tensor cores: K1's tile, K2's ties pass, K6
-HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_proj_bwd")
-HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel", "lstm_proj_bwd_kernel")
+# must run on the tensor cores: K1's tile, K2's ties pass, K4, K6
+HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_bwd",
+             "lstm_proj_bwd")
+HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
+                "lstm_fused_bwd_kernel", "lstm_proj_bwd_kernel")
 
 
 def sass_hmma(libs):
     """The count of HMMA (tensor-core mma) instructions in each kernel of
-    the pool libraries' and K6's SASS, by cuobjdump beside nvcc; fails if
-    K1's or K2's tile kernel or any instance of K6 has none. None where the
-    toolkit has no cuobjdump."""
+    the pool libraries', K4's and K6's SASS, by cuobjdump beside nvcc;
+    fails if K1's or K2's tile kernel or any instance of K4 or K6 has none.
+    None where the toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -610,27 +618,45 @@ def lstm_inputs(gen, T, B, H, with_gx):
     return w, h0, c0, gx, b, (r(T, B, H), r(B, H), r(B, H))
 
 
+def _unit_bounds(products, gate_ops, t_bytes):
+    """The bound of a kernel that runs its matrix products (``products``
+    float32 operations) on the tensor cores, beside the same work on the
+    float32 cores: the float32-core bound (all operations over FP32_PEAK)
+    and the tensor-core one (the products' 3 TF32 passes over TF32_PEAK and,
+    beside them, the gate math over FP32_PEAK), each against the bytes;
+    ``bound_ms`` is the smaller."""
+    t_f32 = (products + gate_ops) / FP32_PEAK * 1e3
+    t_tc = max(3 * products / TF32_PEAK, gate_ops / FP32_PEAK) * 1e3
+    f32, tc = max(t_f32, t_bytes), max(t_tc, t_bytes)
+    unit, t_ops = ("tensor-core", t_tc) if tc <= f32 else ("float32", t_f32)
+    return dict(bound_ms=min(f32, tc),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_unit=unit, bound_f32_ms=f32, bound_tc_ms=tc)
+
+
 def lstm_bound_ms(kind, T, B, H, with_gx, save=False, cot=(True, True, True)):
     """Least time for K3 (``kind='fwd'``) or K4 (``'bwd'``) on these shapes.
     Operations: the recurrent product 2*T*B*H*4H (twice that backward:
-    dz @ W^T and h^T dz) plus LSTM_GATE_OPS per (step, row, unit), over the
-    float32 peak. Bytes, each once over HBM bandwidth: forward w, gx or b,
-    h0, c0 read and ys, hT, cT (and gates, cs when saved) written; backward
-    w, h0, c0, ys, gates, cs and the cotangents given read, dgx (or db),
-    dw, dh0, dc0 written."""
+    dz @ W^T and h^T dz) plus LSTM_GATE_OPS per (step, row, unit). Bytes,
+    each once over HBM bandwidth: forward w, gx or b, h0, c0 read and ys,
+    hT, cT (and gates, cs when saved) written; backward w, h0, c0, ys,
+    gates, cs and the cotangents given read, dgx (or db), dw, dh0, dc0
+    written. Forward: ``bound_ms`` and ``bound_by``, all operations over
+    the float32 peak. Backward, which runs its products on the tensor
+    cores: both units' bounds as :func:`_unit_bounds` gives them."""
     tbh = T * B * H
     if kind == "fwd":
         ops = 2 * tbh * 4 * H + LSTM_GATE_OPS["fwd"] * tbh
         floats = (4 * H * H + (4 * tbh if with_gx else 4 * H) + 4 * B * H
                   + tbh + (5 * tbh if save else 0))
-    else:
-        ops = 4 * tbh * 4 * H + LSTM_GATE_OPS["bwd"] * tbh
-        floats = (8 * H * H + 4 * B * H + 6 * tbh
-                  + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H
-                  + (4 * tbh if with_gx else 4 * H))
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+    floats = (8 * H * H + 4 * B * H + 6 * tbh
+              + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H
+              + (4 * tbh if with_gx else 4 * H))
+    return _unit_bounds(4 * tbh * 4 * H, LSTM_GATE_OPS["bwd"] * tbh,
+                        4 * floats / HBM_BW * 1e3)
 
 
 def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
@@ -642,10 +668,9 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
     ``backward(out)`` gives the kernel and plain backward calls on the
     forward's outputs, ``cot`` which of (dys, dhT, dcT) they are given,
     ``bound(kind)`` the least time of 'fwd' or 'bwd' (a dict with
-    ``bound_ms`` and ``bound_by``, and for K6 both units' bounds as
-    :func:`_bounds` gives them). With ``timed`` (a
-    dict) the median kernel and plain times and the bounds are stored
-    under ``name``."""
+    ``bound_ms`` and ``bound_by``, and for K4 and K6 both units' bounds as
+    :func:`_unit_bounds` gives them). With ``timed`` (a dict) the median
+    kernel and plain times and the bounds are stored under ``name``."""
     import torch
     out, ref = fwd(), plain_fwd()
     torch.cuda.synchronize()
@@ -789,7 +814,9 @@ def lstm_kernel_phase():
            ("T1", 1, 33, 48, True), ("T1_decoder", 1, 33, 32, False),
            ("H8", 5, 9, 8, True), ("H8_decoder", 7, 9, 8, False),
            ("H16", 6, 16, 16, True), ("H16_decoder", 7, 9, 16, False),
-           ("H64", 4, 40, 64, True), ("H64_decoder", 3, 40, 64, False)]
+           ("H64", 4, 40, 64, True), ("H64_decoder", 3, 40, 64, False),
+           ("B4097_H8", 3, 4097, 8, True),
+           ("B4097_H64_decoder", 4, 4097, 64, False)]
     for name, T, B, H, with_gx in odd:       # dys, dhT and dcT all non-zero
         f, b = check_lstm(name, gen, T, B, H, with_gx)
         ferrs.append(f)
@@ -812,10 +839,8 @@ def proj_bound_ms(kind, T, B, D, H, save=False, cot=(True, True, True)):
     backward w_ih, w_hh, xs, h0, c0, ys, gates, cs and the cotangents given
     read, dxs, dw_ih, dw_hh, db, dh0, dc0 written. Forward: ``bound_ms``
     and ``bound_by``, all operations over the float32 peak. Backward, which
-    runs its products on the tensor cores: a dict as :func:`_bounds` gives,
-    the float32-core bound beside the tensor-core one (the products' 3 TF32
-    passes over TF32_PEAK and, beside them, the gate math over FP32_PEAK),
-    each against the bytes; ``bound_ms`` is the smaller."""
+    runs its products on the tensor cores: both units' bounds as
+    :func:`_unit_bounds` gives them."""
     tbh, tbd, w = T * B * H, T * B * D, (D + H) * 4 * H
     if kind == "fwd":
         ops = 2 * T * B * w + LSTM_GATE_OPS["fwd"] * tbh
@@ -824,17 +849,10 @@ def proj_bound_ms(kind, T, B, D, H, save=False, cot=(True, True, True)):
         t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
         return dict(bound_ms=max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
-    products, gate_ops = 4 * T * B * w, LSTM_GATE_OPS["bwd"] * tbh
     floats = (2 * w + 4 * H + 2 * tbd + 4 * B * H + 6 * tbh
               + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H)
-    t_bytes = 4 * floats / HBM_BW * 1e3
-    t_f32 = (products + gate_ops) / FP32_PEAK * 1e3
-    t_tc = max(3 * products / TF32_PEAK, gate_ops / FP32_PEAK) * 1e3
-    f32, tc = max(t_f32, t_bytes), max(t_tc, t_bytes)
-    unit, t_ops = ("tensor-core", t_tc) if tc <= f32 else ("float32", t_f32)
-    return dict(bound_ms=min(f32, tc),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_unit=unit, bound_f32_ms=f32, bound_tc_ms=tc)
+    return _unit_bounds(4 * T * B * w, LSTM_GATE_OPS["bwd"] * tbh,
+                        4 * floats / HBM_BW * 1e3)
 
 
 def check_proj(name, gen, T, B, D, H, save=True, cot=(True, True, True),
@@ -1541,10 +1559,10 @@ def main():
               nearest_library=lstm_library),
         entry("lstm_fused_bwd", "grouptraj_torch/csrc/lstm_fused_bwd.cu",
               "grouptraj/ops/pallas_fused.py:180", k4_err, k4_shape,
-              lstm_timed[k4_shape]["bwd"],
-              shapes={n: t["bwd"] for n, t in lstm_timed.items()
-                      if "bwd" in t},
-              nearest_library=lstm_library),
+              lstm_timed[k4_shape]["bwd"], nearest_library=lstm_library,
+              **tc_more(lstm_timed[k4_shape]["bwd"],
+                          {n: t["bwd"] for n, t in lstm_timed.items()
+                           if "bwd" in t}, "lstm_fused_bwd_kernel")),
         entry("lstm_proj_fwd", "grouptraj_torch/csrc/lstm_proj_fwd.cu",
               "grouptraj/ops/pallas_lstm.py:45", k5_err, k56_shape,
               proj_timed[k56_shape]["fwd"],

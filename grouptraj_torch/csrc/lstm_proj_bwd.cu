@@ -79,12 +79,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kR = 32;              // batch rows per block: two m16 tiles
 constexpr int kSmemMax = 232448;    // bytes of shared memory a block may use
 
-// a row stride (floats) >= n that is 8 mod 32: float2 reads of 8 rows x 4
-// lanes and float reads of 4 rows x 8 lanes each hit 32 banks once
-__host__ __device__ constexpr int stride8(int n) {
-  return n + ((8 - n % 32) + 32) % 32;
-}
-
 template <int D, int H>
 struct Geom {
   static constexpr int G = 4 * H;                     // gate columns
@@ -110,15 +104,6 @@ struct Geom {
 };
 
 __device__ __forceinline__ float pick(float2 v, int q) { return q ? v.y : v.x; }
-
-__device__ __forceinline__ void split(const float (&x)[4], uint32_t (&hi)[4],
-                                      uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    hi[e] = tf32(x[e]);
-    lo[e] = tf32(x[e] - __uint_as_float(hi[e]));
-  }
-}
 
 template <int D, int H>
 __global__ void __launch_bounds__(kThreads, 1)

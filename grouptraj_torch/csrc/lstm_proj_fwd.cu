@@ -84,7 +84,7 @@ lstm_proj_fwd_kernel(const float* __restrict__ w_ih,
   const int row_base = blockIdx.x * kRows;
   const int row0 = row_base + rg * kRowsPerThread;
 
-  stage_gate_matrix<H, false>(swh, w_hh, tid, kThreads);
+  stage_gate_matrix<H>(swh, w_hh, tid, kThreads);
   stage_input_matrix<D, H>(swi, w_ih, tid, kThreads);
   stage_x<D>(sx, xs, row_base, B, tid, kThreads);
 

@@ -94,6 +94,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it at a 16-byte aligned address (a view into
+    another tensor's storage may start anywhere)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else 0
 
@@ -154,7 +160,9 @@ def lstm_fused_bwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     (ys, gates, cs) and the cotangents dys ``[T, B, H]``, dhT, dcT
     ``[B, H]``, each of which may be None (zero) -> (dgx, dw, db, dh0,
     dc0): dgx ``[T, B, 4H]`` for the gx variant (``with_gx``; db is then
-    None), db ``[4H]`` for the constant-bias variant (dgx None)."""
+    None), db ``[4H]`` for the constant-bias variant (dgx None). The
+    kernel copies h0, c0, ys, gates, cs and dys 16 bytes at a time: one
+    that does not start at a 16-byte aligned address is copied first."""
     if ys.dim() != 3:
         raise ValueError(f"ys must be [T, B, H], got {tuple(ys.shape)}")
     T, B, H = ys.shape
@@ -166,6 +174,9 @@ def lstm_fused_bwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     if not w.is_cuda:
         return fused_recurrence_bwd_plain(w, h0, c0, ys, gates, cs, dys, dhT,
                                           dcT, with_gx)
+    # the kernel copies these by cp.async, 16 bytes at a time
+    h0, c0, ys, gates, cs, dys = (
+        _aligned16(t) for t in (h0, c0, ys, gates, cs, dys))
     lib = _bwd_lib()
     nb = -(-B // lib.lstm_fused_bwd_rows_per_block())
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,

@@ -36,7 +36,7 @@ from torch.autograd.function import once_differentiable
 
 from grouptraj_torch.ops import _build
 from grouptraj_torch.ops.cuda_lstm import (
-    HIDDEN_SIZES, _check, _contiguous, _device_index, _f32, _ptr,
+    HIDDEN_SIZES, _aligned16, _check, _contiguous, _device_index, _f32, _ptr,
 )
 from grouptraj_torch.ops.lstm import (
     _wants_grad, lstm_proj_bwd_plain, lstm_proj_fwd_plain,
@@ -83,12 +83,6 @@ def _sizes(xs: torch.Tensor, w_hh: torch.Tensor) -> Tuple[int, int, int, int]:
         raise ValueError(f"xs must be [T, B, D] and w_hh [H, 4H], got "
                          f"{tuple(xs.shape)} and {tuple(w_hh.shape)}")
     return (*xs.shape, w_hh.shape[0])
-
-
-def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t``, or a copy of it at a 16-byte aligned address (a view into
-    another tensor's storage may start anywhere)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def lstm_proj_fwd(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,

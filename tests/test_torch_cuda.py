@@ -3,7 +3,8 @@
 Predictor's kernel path against its plain-pool path, one training
 iteration through both kernels against the plain pool; K3
 (csrc/lstm_fused_fwd.cu) and K4 (csrc/lstm_fused_bwd.cu) against their
-plain versions, and a training iteration with ``lstm_impl='fused'`` against
+plain versions, two K4 calls that give equal bits, K4 on misaligned
+views, and a training iteration with ``lstm_impl='fused'`` against
 ``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
 against their plain versions, and a training iteration with
 ``lstm_impl='pallas'`` against ``'scan'``. Marked ``cuda``; each test skips
@@ -227,7 +228,9 @@ def test_fused_forward_kernel_matches_plain(cuda, T, B, H, with_gx):
 
 @pytest.mark.parametrize("T,B,H,with_gx", [
     (8, 50, 32, True), (6, 16, 16, True), (20, 40, 48, True),
-    (11, 24, 32, False), (7, 9, 8, False), (1, 1, 48, True)])
+    (11, 24, 32, False), (7, 9, 8, False), (1, 1, 48, True),
+    (20, 8192, 48, True), (11, 8192, 32, False), (3, 4097, 8, True),
+    (4, 40, 64, True), (3, 33, 64, False)])
 def test_fused_backward_kernel_matches_plain(cuda, T, B, H, with_gx):
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
     from grouptraj_torch.ops.lstm import fused_recurrence_bwd_plain
@@ -249,6 +252,53 @@ def test_fused_backward_kernel_matches_plain(cuda, T, B, H, with_gx):
             if x is not None:
                 assert (x - y).abs().max().item() <= 1e-4 * max(
                     y.abs().max().item(), 1e-30)
+
+
+def test_fused_backward_repeats_bit_for_bit(cuda):
+    """K4 sums every partial in a fixed order and uses no float atomics:
+    two calls on the same inputs give the same bits, both variants."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    for with_gx in (True, False):
+        w, h0, c0, gx, b, (dys, dhT, dcT) = _lstm_case(cuda, 20, 4097, 48,
+                                                       with_gx, seed=3)
+        ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=20,
+                                             save=True)
+        cot = (dys, dhT, dcT) if with_gx else (dys, None, None)
+        args = (w, h0, c0, ys, gates, cs, *cot, with_gx)
+        first, second = lstm_fused_bwd(*args), lstm_fused_bwd(*args)
+        for x, y in zip(first, second):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y) and x.abs().max() > 0
+
+
+def test_fused_backward_takes_misaligned_views(cuda):
+    """K4 copies its inputs by cp.async, 16 bytes at a time: the wrapper
+    hands it a copy of a view that starts off a 16-byte boundary, and the
+    result is the plain version's."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import fused_recurrence_bwd_plain
+    T, B, H = 5, 70, 32
+    w, h0, c0, gx, _, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H, True,
+                                                   seed=5)
+    ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, save=True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    args = [shifted(t) for t in (h0, c0, ys, gates, cs, dys)]
+    got = lstm_fused_bwd(w, *args[:5], args[5], dhT, dcT, True)
+    ref = fused_recurrence_bwd_plain(w, h0, c0, ys, gates, cs, dys, dhT,
+                                     dcT, True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
 
 
 def test_fused_functions_differentiate_through_the_kernels(cuda):
