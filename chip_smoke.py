@@ -6,9 +6,9 @@ Phases, each of which fails the run on any error:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed, with
    ptxas's registers, shared memory and spills; the count of tensor-core
-   (HMMA) instructions in the pool kernels', K4's and K6's SASS
+   (HMMA) instructions in the pool kernels', K3's, K4's and K6's SASS
    (cuobjdump), which must not be 0 for K1's and K2's tile kernels and for
-   any instance of K4 or K6;
+   any instance of K3, K4 or K6;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
    discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
@@ -29,9 +29,8 @@ Phases, each of which fails the run on any error:
    T=20/B=8,192/H=48, decoder T=11 at B=8,192 with residuals and at
    B=81,920 without) and at odd sizes (B=1, B=70, T=1, H=8, 16 and 64, a
    ragged B=4,097 at H=8 and 64, all cotangents non-zero or only dhT);
-   times beside the bound (K4: the float32-core and the tensor-core
-   bound), and torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the
-   encoder shapes;
+   times beside the float32-core and the tensor-core bound, and
+   torch.nn.LSTM (cuDNN) beside matmul + K3 (+ K4) at the encoder shapes;
    then K5 (the LSTM with its input projection in the kernel,
    csrc/lstm_proj_fwd.cu) and K6 (its backward, csrc/lstm_proj_bwd.cu)
    against their plain versions at the encoders' full-width shapes
@@ -124,17 +123,20 @@ BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 
 def kernel_name(line):
-    """``pool_core_fwd_kernel<6,f32>``, ``lstm_fused_bwd_kernel<48,1>``
-    (H, WITH_GX) or ``lstm_proj_bwd_kernel<16,48>`` from a line that names
-    a pool kernel's, K4's or K6's mangled symbol (ptxas or cuobjdump; the
-    base name alone from a profiler's demangled one); None for other
-    kernels."""
-    m = re.search(r"(lstm_fused_bwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
+    """``pool_core_fwd_kernel<6,f32>``, ``lstm_fused_fwd_kernel<32,0,0>``
+    (H, WITH_GX, SAVE), ``lstm_fused_bwd_kernel<48,1>`` (H, WITH_GX) or
+    ``lstm_proj_bwd_kernel<16,48>`` from a line that names a pool kernel's,
+    K3's, K4's or K6's mangled symbol (ptxas or cuobjdump; the base name
+    alone from a profiler's demangled one); None for other kernels."""
+    m = re.search(r"(lstm_fused_fwd_kernel)(?:ILi(\d+)ELb([01])ELb([01])E)?",
+                  line)
+    if m is None:
+        m = re.search(r"(lstm_fused_bwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
     if m is None:
         m = re.search(r"(lstm_proj_bwd_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
     if m is not None:
-        return m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
-                             if m.group(2) else "")
+        args = [x for x in m.groups()[1:] if x is not None]
+        return m.group(1) + (f"<{','.join(args)}>" if args else "")
     m = re.search(r"((?:split_w|pool_core_fwd|ties|tie_grads|weight_reduce)"
                   r"_kernel)(?:I(?:L[ib](\d+)E)?(f|13__nv_bfloat16)?E)?", line)
     if m is None:
@@ -145,18 +147,19 @@ def kernel_name(line):
 
 
 # libraries whose SASS sass_hmma reads, and the kernels among them that
-# must run on the tensor cores: K1's tile, K2's ties pass, K4, K6
-HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_bwd",
-             "lstm_proj_bwd")
+# must run on the tensor cores: K1's tile, K2's ties pass, K3, K4, K6
+HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_fwd",
+             "lstm_fused_bwd", "lstm_proj_bwd")
 HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
-                "lstm_fused_bwd_kernel", "lstm_proj_bwd_kernel")
+                "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
+                "lstm_proj_bwd_kernel")
 
 
 def sass_hmma(libs):
     """The count of HMMA (tensor-core mma) instructions in each kernel of
-    the pool libraries', K4's and K6's SASS, by cuobjdump beside nvcc;
-    fails if K1's or K2's tile kernel or any instance of K4 or K6 has none.
-    None where the toolkit has no cuobjdump."""
+    the pool libraries', K3's, K4's and K6's SASS, by cuobjdump beside
+    nvcc; fails if K1's or K2's tile kernel or any instance of K3, K4 or K6
+    has none. None where the toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -607,6 +610,18 @@ def kernel_bwd_phase(rng):
 
 # ------------------------------------------------------------ lstm kernels
 
+# K3/K4 at the shapes the main paths give them (timed): name, T, B, H, gx
+# variant, residuals saved, cotangents (dys, dhT, dcT) given to K4
+_ENC, _DEC = (False, True, False), (True, False, False)
+LSTM_MAIN = (
+    ("G_encoder_T8_B4096_H32", 8, 4096, 32, True, True, _ENC),
+    ("D_encoder_T20_B4096_H48", 20, 4096, 48, True, True, _ENC),
+    ("D_encoder_T20_B8192_H48", 20, 8192, 48, True, True, _ENC),
+    ("decoder_T11_B4096_H32_nograd", 11, 4096, 32, False, False, _DEC),
+    ("decoder_T11_B8192_H32", 11, 8192, 32, False, True, _DEC),
+    ("decoder_T11_B81920_H32_nograd", 11, 81920, 32, False, False, _DEC))
+
+
 def lstm_inputs(gen, T, B, H, with_gx):
     """w, h0, c0 and gx or b on the card at the scale the models give them
     (weights ~1/sqrt(H), states of a few tenths), plus cotangents."""
@@ -641,17 +656,14 @@ def lstm_bound_ms(kind, T, B, H, with_gx, save=False, cot=(True, True, True)):
     each once over HBM bandwidth: forward w, gx or b, h0, c0 read and ys,
     hT, cT (and gates, cs when saved) written; backward w, h0, c0, ys,
     gates, cs and the cotangents given read, dgx (or db), dw, dh0, dc0
-    written. Forward: ``bound_ms`` and ``bound_by``, all operations over
-    the float32 peak. Backward, which runs its products on the tensor
-    cores: both units' bounds as :func:`_unit_bounds` gives them."""
+    written. Both kernels run their products on the tensor cores: both
+    units' bounds as :func:`_unit_bounds` gives them."""
     tbh = T * B * H
     if kind == "fwd":
-        ops = 2 * tbh * 4 * H + LSTM_GATE_OPS["fwd"] * tbh
         floats = (4 * H * H + (4 * tbh if with_gx else 4 * H) + 4 * B * H
                   + tbh + (5 * tbh if save else 0))
-        t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
-        return dict(bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+        return _unit_bounds(2 * tbh * 4 * H, LSTM_GATE_OPS["fwd"] * tbh,
+                            4 * floats / HBM_BW * 1e3)
     floats = (8 * H * H + 4 * B * H + 6 * tbh
               + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H
               + (4 * tbh if with_gx else 4 * H))
@@ -668,9 +680,10 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
     ``backward(out)`` gives the kernel and plain backward calls on the
     forward's outputs, ``cot`` which of (dys, dhT, dcT) they are given,
     ``bound(kind)`` the least time of 'fwd' or 'bwd' (a dict with
-    ``bound_ms`` and ``bound_by``, and for K4 and K6 both units' bounds as
-    :func:`_unit_bounds` gives them). With ``timed`` (a dict) the median
-    kernel and plain times and the bounds are stored under ``name``."""
+    ``bound_ms`` and ``bound_by``, and for K3, K4 and K6 both units'
+    bounds as :func:`_unit_bounds` gives them). With ``timed`` (a dict)
+    the median kernel and plain times and the bounds are stored under
+    ``name``."""
     import torch
     out, ref = fwd(), plain_fwd()
     torch.cuda.synchronize()
@@ -796,15 +809,7 @@ def lstm_kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
     timed, ferrs, berrs = {}, [], []
-    enc, dec = (False, True, False), (True, False, False)
-    main = [   # name, T, B, H, gx variant, residuals, cotangents given
-        ("G_encoder_T8_B4096_H32", 8, 4096, 32, True, True, enc),
-        ("D_encoder_T20_B4096_H48", 20, 4096, 48, True, True, enc),
-        ("D_encoder_T20_B8192_H48", 20, 8192, 48, True, True, enc),
-        ("decoder_T11_B4096_H32_nograd", 11, 4096, 32, False, False, dec),
-        ("decoder_T11_B8192_H32", 11, 8192, 32, False, True, dec),
-        ("decoder_T11_B81920_H32_nograd", 11, 81920, 32, False, False, dec)]
-    for name, T, B, H, with_gx, save, cot in main:
+    for name, T, B, H, with_gx, save, cot in LSTM_MAIN:
         f, b = check_lstm(name, gen, T, B, H, with_gx, save, cot, timed)
         ferrs.append(f)
         berrs.append(b)
@@ -821,7 +826,7 @@ def lstm_kernel_phase():
         f, b = check_lstm(name, gen, T, B, H, with_gx)
         ferrs.append(f)
         berrs.append(b)
-    f, b = check_lstm("only_dys", gen, 6, 50, 32, True, cot=dec)
+    f, b = check_lstm("only_dys", gen, 6, 50, 32, True, cot=_DEC)
     library = {
         "G_encoder_T8_B4096_H32": library_lstm(gen, "G_encoder", 8, 4096,
                                                16, 32),
@@ -1554,9 +1559,10 @@ def main():
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",
               "grouptraj/ops/pallas_fused.py:118", k3_err, k3_shape,
-              lstm_timed[k3_shape]["fwd"],
-              shapes={n: t["fwd"] for n, t in lstm_timed.items()},
-              nearest_library=lstm_library),
+              lstm_timed[k3_shape]["fwd"], nearest_library=lstm_library,
+              **tc_more(lstm_timed[k3_shape]["fwd"],
+                        {n: t["fwd"] for n, t in lstm_timed.items()},
+                        "lstm_fused_fwd_kernel")),
         entry("lstm_fused_bwd", "grouptraj_torch/csrc/lstm_fused_bwd.cu",
               "grouptraj/ops/pallas_fused.py:180", k4_err, k4_shape,
               lstm_timed[k4_shape]["bwd"], nearest_library=lstm_library,

@@ -1,8 +1,9 @@
 // Tensor-core helpers shared by the kernels that run 3xTF32 products on
-// mma.sync (the pool pair tile, pool_core.cuh; the LSTM backwards K4,
-// lstm_fused_bwd.cu, and K6, lstm_proj_bwd.cu): a 16-byte cp.async, the
-// TF32 rounding of the split x = hi + lo, one m16n8k8 TF32 product with
-// float32 accumulate, and the shared-memory row stride of the LSTM tiles.
+// mma.sync (the pool pair tile, pool_core.cuh; the LSTM forward K3,
+// lstm_fused_fwd.cu, and backwards K4, lstm_fused_bwd.cu, and K6,
+// lstm_proj_bwd.cu): a 16-byte cp.async, the TF32 rounding of the split
+// x = hi + lo, one m16n8k8 TF32 product with float32 accumulate, and the
+// shared-memory row stride of the LSTM tiles.
 
 #pragma once
 

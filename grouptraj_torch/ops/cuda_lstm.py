@@ -114,7 +114,9 @@ def lstm_fused_fwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     -> (ys ``[T, B, H]``, hT, cT, gates, cs); with ``save`` gates
     ``[T, B, 4H]`` (post-activation i, f, g, o) and cs ``[T, B, H]`` are
     the residuals :func:`lstm_fused_bwd` takes, else both are None and
-    nothing but ys, hT and cT is written."""
+    nothing but ys, hT and cT is written. The kernel reads gx, h0 and c0
+    eight bytes at a time: one that does not start at a 16-byte aligned
+    address is copied first."""
     if (gx is None) == (b is None):
         raise ValueError("give exactly one of gx and b")
     with_gx = gx is not None
@@ -130,6 +132,7 @@ def lstm_fused_fwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     _check_sizes(T, B, H, w.is_cuda)
     if not w.is_cuda:
         return _fused_fwd_plain(w, gx, b, h0, c0, T, save)
+    gx, h0, c0 = (_aligned16(t) for t in (gx, h0, c0))
     lib = _fwd_lib()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w.device)

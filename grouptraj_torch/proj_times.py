@@ -1,20 +1,23 @@
-"""Times the LSTM backward kernels K4 (``lstm_fused_bwd``, the whole-loop
-recurrence's backward) and K6 (``lstm_proj_bwd``, the backward of the LSTM
-with its input projection in the kernel) of one checkout of this port on one
-CUDA card, at the shapes chip_smoke.py times, so that two versions of a
-kernel can be compared in one machine session:
+"""Times the LSTM kernels K3 (``lstm_fused_fwd``, the whole-loop
+recurrence), K4 (``lstm_fused_bwd``, its backward) and K6
+(``lstm_proj_bwd``, the backward of the LSTM with its input projection in
+the kernel) of one checkout of this port on one CUDA card, at the shapes
+chip_smoke.py times, so that two versions of a kernel can be compared in
+one machine session:
 
     python3 grouptraj_torch/proj_times.py                  # this checkout
     python3 grouptraj_torch/proj_times.py --root OTHER     # another one
-    python3 grouptraj_torch/proj_times.py --kernel K4      # K4 only
+    python3 grouptraj_torch/proj_times.py --kernel K3      # K3 only
 
 ``--root`` is the directory that holds the other checkout's
 ``grouptraj_torch/`` (its kernels are built there); the inputs and the
 timers are this script's and this checkout's chip_smoke.py's, the same for
-every root. Inputs as chip_smoke.py's check_lstm (K4: a non-zero initial
-state, K3's residuals, a cotangent on hT only for the encoders and on ys
-for the decoder) and check_proj (K6: K5's residuals, a cotangent on hT
-only) make them. Per shape it prints one JSON line:
+every root. Inputs as chip_smoke.py's check_lstm (K3 at its six main
+shapes, ``LSTM_MAIN``, residuals saved where the training step saves them;
+K4 at those of them that save residuals: a non-zero initial state, K3's
+residuals, a cotangent on hT only for the encoders and on ys for the
+decoder) and check_proj (K6: K5's residuals, a cotangent on hT only) make
+them. Per shape it prints one JSON line:
 
 - ``ms``: chip_smoke.py's ``time_ms`` (median of 20 single-call CUDA-event
   times, each call queued behind a ~1 ms sleep kernel, so the events hold
@@ -35,29 +38,37 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (name, T, B, H, gx variant): chip_smoke.py's timed shapes that run K4
-K4_SHAPES = (("G_encoder_T8_B4096_H32", 8, 4096, 32, True),
-             ("D_encoder_T20_B4096_H48", 20, 4096, 48, True),
-             ("D_encoder_T20_B8192_H48", 20, 8192, 48, True),
-             ("decoder_T11_B8192_H32", 11, 8192, 32, False))
 # (name, T, B, D, H): chip_smoke.py's timed shapes that run K6
 K6_SHAPES = (("G_encoder_T8_B4096_D16_H32", 8, 4096, 16, 32),
              ("D_encoder_T20_B4096_D16_H48", 20, 4096, 16, 48),
              ("D_encoder_T20_B8192_D16_H48", 20, 8192, 16, 48))
 
 
+def k3_calls(cs, seed):
+    """(shape name, one K3 call) at each of chip_smoke's LSTM_MAIN."""
+    import torch
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, T, B, H, with_gx, save, _ in cs.LSTM_MAIN:
+        w, h0, c0, gx, b, _ = cs.lstm_inputs(gen, T, B, H, with_gx)
+        yield name, lambda: lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
+                                           save=save)
+
+
 def k4_calls(cs, seed):
-    """(shape name, one K4 call) at each of K4_SHAPES."""
+    """(shape name, one K4 call) at each of chip_smoke's LSTM_MAIN that
+    saves residuals."""
     import torch
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, T, B, H, with_gx in K4_SHAPES:
-        w, h0, c0, gx, b, (dys, dhT, _) = cs.lstm_inputs(gen, T, B, H,
-                                                         with_gx)
+    for name, T, B, H, with_gx, save, cot in cs.LSTM_MAIN:
+        if not save:
+            continue
+        w, h0, c0, gx, b, cots = cs.lstm_inputs(gen, T, B, H, with_gx)
         ys, _, _, gates, cs_ = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
                                               save=True)
-        cot = (None, dhT, None) if with_gx else (dys, None, None)
-        bargs = (w, h0, c0, ys, gates, cs_, *cot, with_gx)
+        given = [c if use else None for c, use in zip(cots, cot)]
+        bargs = (w, h0, c0, ys, gates, cs_, *given, with_gx)
         yield name, lambda: lstm_fused_bwd(*bargs)
 
 
@@ -80,10 +91,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose grouptraj_torch is timed")
-    ap.add_argument("--kernel", choices=("K4", "K6", "all"), default="all")
+    ap.add_argument("--kernel", choices=("K3", "K4", "K6", "all"),
+                    default="all")
     ap.add_argument("--seed", type=int, default=None,
-                    help="input seed (default: chip_smoke's, 7 for K4 and "
-                         "11 for K6)")
+                    help="input seed (default: chip_smoke's, 7 for K3 and "
+                         "K4 and 11 for K6)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     spec = importlib.util.spec_from_file_location(
@@ -98,6 +110,9 @@ def main():
     print(f"proj_times: timing {os.path.dirname(grouptraj_torch.__file__)}")
 
     kernels = []
+    if args.kernel in ("K3", "all"):
+        kernels.append(("K3", k3_calls(cs, 7 if args.seed is None
+                                        else args.seed)))
     if args.kernel in ("K4", "all"):
         kernels.append(("K4", k4_calls(cs, 7 if args.seed is None
                                         else args.seed)))

@@ -3,9 +3,9 @@
 Predictor's kernel path against its plain-pool path, one training
 iteration through both kernels against the plain pool; K3
 (csrc/lstm_fused_fwd.cu) and K4 (csrc/lstm_fused_bwd.cu) against their
-plain versions, two K4 calls that give equal bits, K4 on misaligned
-views, and a training iteration with ``lstm_impl='fused'`` against
-``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
+plain versions, two K3 and two K4 calls that give equal bits, K3 and K4
+on misaligned views, and a training iteration with ``lstm_impl='fused'``
+against ``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
 against their plain versions, and a training iteration with
 ``lstm_impl='pallas'`` against ``'scan'``. Marked ``cuda``; each test skips
 without a CUDA device.
@@ -20,7 +20,7 @@ da/du 1e-5 and dW2/db2 1e-4 relative to the largest reference entry, given
 the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
 training iteration's losses 1e-4 relative; K3's outputs 1e-5 absolute and
 K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 48
-products in another order, accurate expf/tanhf on both sides), and the same
+products in another order, accurate activations on both sides), and the same
 for K5 and K6.
 """
 
@@ -226,6 +226,44 @@ def test_fused_forward_kernel_matches_plain(cuda, T, B, H, with_gx):
                 assert (x - y).abs().max().item() <= 1e-5
 
 
+def _shifted(t):
+    """A copy of t in a view that starts 4 bytes off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+def test_fused_forward_repeats_bit_for_bit(cuda):
+    """K3 sums every product in a fixed order and uses no atomics: two calls
+    on the same inputs give the same bits, both variants, residuals
+    saved."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    for with_gx in (True, False):
+        w, h0, c0, gx, b, _ = _lstm_case(cuda, 11, 4097, 32, with_gx, seed=4)
+        first, second = (lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=11,
+                                        save=True) for _ in range(2))
+        for x, y in zip(first, second):
+            assert torch.equal(x, y) and x.abs().max() > 0
+
+
+def test_fused_forward_takes_misaligned_views(cuda):
+    """K3 reads gx, h0 and c0 eight bytes at a time: the wrapper hands it a
+    copy of a view that starts off a 16-byte boundary, and the result is
+    the plain version's."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    from grouptraj_torch.ops.lstm import _fused_fwd_plain
+    T, B, H = 6, 70, 48
+    w, h0, c0, gx, _, _ = _lstm_case(cuda, T, B, H, True, seed=6)
+    got = lstm_fused_fwd(w, _shifted(h0), _shifted(c0), gx=_shifted(gx),
+                         save=True)
+    ref = _fused_fwd_plain(w, gx, None, h0, c0, T, True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        assert (x - y).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("T,B,H,with_gx", [
     (8, 50, 32, True), (6, 16, 16, True), (20, 40, 48, True),
     (11, 24, 32, False), (7, 9, 8, False), (1, 1, 48, True),
@@ -282,15 +320,7 @@ def test_fused_backward_takes_misaligned_views(cuda):
     w, h0, c0, gx, _, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H, True,
                                                    seed=5)
     ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, save=True)
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, device=cuda)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        assert view.data_ptr() % 16 != 0
-        return view
-
-    args = [shifted(t) for t in (h0, c0, ys, gates, cs, dys)]
+    args = [_shifted(t) for t in (h0, c0, ys, gates, cs, dys)]
     got = lstm_fused_bwd(w, *args[:5], args[5], dhT, dcT, True)
     ref = fused_recurrence_bwd_plain(w, h0, c0, ys, gates, cs, dys, dhT,
                                      dcT, True)

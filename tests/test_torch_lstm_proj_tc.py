@@ -1,8 +1,9 @@
-"""The arithmetic of the tensor-core LSTM backwards (K6,
-``csrc/lstm_proj_bwd.cu``, and K4, ``csrc/lstm_fused_bwd.cu``) on the CPU:
-a plain emulation of the kernels' 3xTF32 products, written here and not in
-the package (the port keeps one plain version of each,
-``ops/lstm.py:lstm_proj_bwd_plain`` and ``fused_recurrence_bwd_plain``).
+"""The arithmetic of the tensor-core LSTM kernels (the backwards K6,
+``csrc/lstm_proj_bwd.cu``, and K4, ``csrc/lstm_fused_bwd.cu``, and the
+forward K3, ``csrc/lstm_fused_fwd.cu``) on the CPU: a plain emulation of
+the kernels' 3xTF32 products, written here and not in the package (the
+port keeps one plain version of each, ``ops/lstm.py:lstm_proj_bwd_plain``,
+``fused_recurrence_bwd_plain`` and ``_fused_fwd_plain``).
 Per step a kernel forms dz in float32, splits it into TF32 hi + lo (10
 mantissa bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``),
 and runs its two products as ``lo_a hi_b + hi_a lo_b + hi_a hi_b``: K6
@@ -23,6 +24,16 @@ The split's error has to fit well inside the kernels' tolerance on the card
 (``LSTM_BWD_RTOL = 1e-4`` in chip_smoke.py). Tolerance here: 1e-5 of each
 gradient's largest entry; the split drops lo_a lo_b and the bits below hi +
 lo, ~2^-21 of each product.
+
+K3's step is ``z = pre + (lo_h hi_W + hi_h lo_W + hi_h hi_W)`` (pre = gx_t
+or b, the product summed from zero) with the gate math as the kernel forms
+it (each activation from one exp and one correctly rounded reciprocal),
+held against the forward rules of ``pallas_fused.py``'s
+``lstm_recurrence_pallas`` and ``decoder_recurrence_pallas`` (their
+``_fwd_kernel``, in interpret mode, which also give the residuals gates and
+cs) at the encoders' widths (gx variant), the decoder variant and the
+widest width, every output within 1e-5 absolute (``LSTM_FWD_ATOL`` in
+chip_smoke.py, the kernel's tolerance on the card).
 """
 
 import jax
@@ -108,6 +119,27 @@ def _k4_3xtf32(w, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx):
     return dgx, dw, db, dh, dc
 
 
+def _k3_3xtf32(w, gx, b, h0, c0, T):
+    """K3's forward with its product split as on the tensor cores and its
+    gate math as the kernel forms it: sigmoid(x) = 1 / (1 + exp(-x)), x
+    clamped at -80, and tanh(x) = 2 sigmoid(2x) - 1; gx or b None.
+    -> (ys, hT, cT, gates, cs)."""
+    H = w.shape[0]
+    sigmoid = lambda x: 1 / (1 + torch.exp(-x.clamp(min=-80)))
+    tanh = lambda x: 2 * sigmoid(2 * x) - 1
+    h, c, ys, gates, cs = h0, c0, [], [], []
+    for t in range(T):
+        z = (gx[t] if gx is not None else b) + _product(h, w)
+        zi, zf, zg, zo = z.split(H, dim=-1)
+        i, f, g, o = sigmoid(zi), sigmoid(zf), tanh(zg), sigmoid(zo)
+        c = f * c + i * g
+        h = o * tanh(c)
+        ys.append(h)
+        gates.append(torch.cat([i, f, g, o], dim=-1))
+        cs.append(c)
+    return torch.stack(ys), h, c, torch.stack(gates), torch.stack(cs)
+
+
 def _close(got, want):
     for name, g in got.items():
         r = np.asarray(want[name])
@@ -188,3 +220,38 @@ def test_k4_split_emulation_matches_pallas(monkeypatch, T, B, H, with_gx):
     got = {"dw": dw, "dh0": dh0, "dc0": dc0}
     got.update({"dgx": dgx} if with_gx else {"db": db})
     _close(got, want)
+
+
+@pytest.mark.parametrize("T,B,H,with_gx", [(20, 40, 48, True),
+                                           (8, 64, 32, True),
+                                           (11, 40, 32, False),
+                                           (4, 33, 64, True)])
+def test_k3_split_emulation_matches_pallas(monkeypatch, T, B, H, with_gx):
+    orig = PF.pl.pallas_call
+
+    def interpreted(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(PF.pl, "pallas_call", interpreted)
+    rng = np.random.default_rng(T * B + H + 1)
+    n = lambda scale, *s: (scale * rng.normal(size=s)).astype(np.float32)
+    w, h0, c0 = n(1 / np.sqrt(H), H, 4 * H), n(0.5, B, H), n(0.5, B, H)
+    gx_or_b = n(1.0, T, B, 4 * H) if with_gx else n(0.1, 4 * H)
+    if with_gx:
+        (ys, hT, cT), res = PF._lstm_recur_fwd(w, gx_or_b, h0, c0)
+        want = {"ys": ys, "hT": hT, "cT": cT}
+    else:
+        ys, res = PF._dec_recur_fwd(w, gx_or_b, h0, c0, T)
+        want = {"ys": ys}
+    want["gates"], want["cs"] = res[4][:, :B], res[5][:, :B]
+
+    t = lambda x: torch.from_numpy(np.asarray(x))
+    gx, b = (t(gx_or_b), None) if with_gx else (None, t(gx_or_b))
+    ys, hT, cT, gates, cs = _k3_3xtf32(t(w), gx, b, t(h0), t(c0), T)
+    got = {"ys": ys, "gates": gates, "cs": cs}
+    if with_gx:
+        got.update(hT=hT, cT=cT)
+    for name, g in got.items():
+        err = np.abs(g.numpy() - np.asarray(want[name])).max()
+        assert err <= 1e-5, (name, err)
