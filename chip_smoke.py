@@ -6,9 +6,9 @@ Phases, each of which fails the run on any error:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: every kernel under grouptraj_torch/csrc/ with nvcc, timed, with
    ptxas's registers, shared memory and spills; the count of tensor-core
-   (HMMA) instructions in the pool kernels', K3's, K4's and K6's SASS
+   (HMMA) instructions in the pool kernels', K3's, K4's, K5's and K6's SASS
    (cuobjdump), which must not be 0 for K1's and K2's tile kernels and for
-   any instance of K3, K4 or K6;
+   any instance of K3, K4, K5 or K6;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
    discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
@@ -38,8 +38,8 @@ Phases, each of which fails the run on any error:
    discriminator T=20/D=16/H=48 at B=8,192 and 4,096, a cotangent on hT
    only) and at odd sizes (B=1, B=70, T=1, D=4 and 8, H=8, 16 and 64, all
    cotangents non-zero or only dhT), non-zero initial states throughout;
-   times beside the bound (K6: the float32-core and the tensor-core
-   bound), and torch.nn.LSTM's forward and forward +
+   times beside the float32-core and the tensor-core bound, and
+   torch.nn.LSTM's forward and forward +
    backward beside K5 and K5 + K6 at the encoder shapes;
 4. serve: the zoo checkpoint zara1_12 (the ``gat`` preset at full width)
    served at k=20 through Predictor.predict_batch on realistic scenes at
@@ -124,12 +124,16 @@ BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 def kernel_name(line):
     """``pool_core_fwd_kernel<6,f32>``, ``lstm_fused_fwd_kernel<32,0,0>``
-    (H, WITH_GX, SAVE), ``lstm_fused_bwd_kernel<48,1>`` (H, WITH_GX) or
+    (H, WITH_GX, SAVE), ``lstm_fused_bwd_kernel<48,1>`` (H, WITH_GX),
+    ``lstm_proj_fwd_kernel<16,48,1>`` (D, H, SAVE) or
     ``lstm_proj_bwd_kernel<16,48>`` from a line that names a pool kernel's,
-    K3's, K4's or K6's mangled symbol (ptxas or cuobjdump; the base name
-    alone from a profiler's demangled one); None for other kernels."""
+    K3's, K4's, K5's or K6's mangled symbol (ptxas or cuobjdump; the base
+    name alone from a profiler's demangled one); None for other kernels."""
     m = re.search(r"(lstm_fused_fwd_kernel)(?:ILi(\d+)ELb([01])ELb([01])E)?",
                   line)
+    if m is None:
+        m = re.search(
+            r"(lstm_proj_fwd_kernel)(?:ILi(\d+)ELi(\d+)ELb([01])E)?", line)
     if m is None:
         m = re.search(r"(lstm_fused_bwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
     if m is None:
@@ -147,19 +151,19 @@ def kernel_name(line):
 
 
 # libraries whose SASS sass_hmma reads, and the kernels among them that
-# must run on the tensor cores: K1's tile, K2's ties pass, K3, K4, K6
+# must run on the tensor cores: K1's tile, K2's ties pass, K3-K6
 HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_fwd",
-             "lstm_fused_bwd", "lstm_proj_bwd")
+             "lstm_fused_bwd", "lstm_proj_fwd", "lstm_proj_bwd")
 HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
-                "lstm_proj_bwd_kernel")
+                "lstm_proj_fwd_kernel", "lstm_proj_bwd_kernel")
 
 
 def sass_hmma(libs):
     """The count of HMMA (tensor-core mma) instructions in each kernel of
-    the pool libraries', K3's, K4's and K6's SASS, by cuobjdump beside
-    nvcc; fails if K1's or K2's tile kernel or any instance of K3, K4 or K6
-    has none. None where the toolkit has no cuobjdump."""
+    the pool libraries', K3's, K4's, K5's and K6's SASS, by cuobjdump
+    beside nvcc; fails if K1's or K2's tile kernel or any instance of K3,
+    K4, K5 or K6 has none. None where the toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
@@ -680,8 +684,8 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
     ``backward(out)`` gives the kernel and plain backward calls on the
     forward's outputs, ``cot`` which of (dys, dhT, dcT) they are given,
     ``bound(kind)`` the least time of 'fwd' or 'bwd' (a dict with
-    ``bound_ms`` and ``bound_by``, and for K3, K4 and K6 both units'
-    bounds as :func:`_unit_bounds` gives them). With ``timed`` (a dict)
+    ``bound_ms`` and ``bound_by``, and both units' bounds as
+    :func:`_unit_bounds` gives them). With ``timed`` (a dict)
     the median kernel and plain times and the bounds are stored under
     ``name``."""
     import torch
@@ -722,10 +726,9 @@ def hold_pair(label, name, desc, fwd, plain_fwd, save, backward, keys, cot,
             e = timed[name][kind] = dict(
                 ms=time_ms(kernel), plain_ms=time_ms(plain, reps=5, warmup=1),
                 **bound(kind))
-            text = (_bound_text(e) if "bound_unit" in e else
-                    f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']})")
             print(f"kernel {label} {name} {kind} time: kernel_ms="
-                  f"{e['ms']:.4f} plain_ms={e['plain_ms']:.4f} {text} "
+                  f"{e['ms']:.4f} plain_ms={e['plain_ms']:.4f} "
+                  f"{_bound_text(e)} "
                   f"kernel/bound={e['ms'] / e['bound_ms']:.2f}")
     return ferr, berr
 
@@ -842,22 +845,38 @@ def proj_bound_ms(kind, T, B, D, H, save=False, cot=(True, True, True)):
     row, unit). Bytes, each once over HBM bandwidth: forward w_ih, w_hh, b,
     xs, h0, c0 read and ys, hT, cT (and gates, cs when saved) written;
     backward w_ih, w_hh, xs, h0, c0, ys, gates, cs and the cotangents given
-    read, dxs, dw_ih, dw_hh, db, dh0, dc0 written. Forward: ``bound_ms``
-    and ``bound_by``, all operations over the float32 peak. Backward, which
-    runs its products on the tensor cores: both units' bounds as
+    read, dxs, dw_ih, dw_hh, db, dh0, dc0 written. Both kernels run their
+    products on the tensor cores: both units' bounds as
     :func:`_unit_bounds` gives them."""
     tbh, tbd, w = T * B * H, T * B * D, (D + H) * 4 * H
     if kind == "fwd":
-        ops = 2 * T * B * w + LSTM_GATE_OPS["fwd"] * tbh
         floats = (w + 4 * H + tbd + 4 * B * H + tbh
                   + (5 * tbh if save else 0))
-        t_ops, t_bytes = ops / FP32_PEAK * 1e3, 4 * floats / HBM_BW * 1e3
-        return dict(bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+        return _unit_bounds(2 * T * B * w, LSTM_GATE_OPS["fwd"] * tbh,
+                            4 * floats / HBM_BW * 1e3)
     floats = (2 * w + 4 * H + 2 * tbd + 4 * B * H + 6 * tbh
               + (tbh if cot[0] else 0) + (cot[1] + cot[2]) * B * H)
     return _unit_bounds(4 * T * B * w, LSTM_GATE_OPS["bwd"] * tbh,
                         4 * floats / HBM_BW * 1e3)
+
+
+# K5/K6 at the shapes the encoders give them on the main paths (timed):
+# name, T, B, D, H, residuals saved
+PROJ_MAIN = (
+    ("G_encoder_T8_B4096_D16_H32", 8, 4096, 16, 32, True),
+    ("G_encoder_T8_B4096_D16_H32_nograd", 8, 4096, 16, 32, False),
+    ("D_encoder_T20_B4096_D16_H48", 20, 4096, 16, 48, True),
+    ("D_encoder_T20_B8192_D16_H48", 20, 8192, 16, 48, True))
+
+
+def proj_inputs(gen, T, B, D, H):
+    """w_ih, w_hh, b, xs, h0, c0 on the card at the scale the models give
+    them (weights ~1/sqrt(H), states of a few tenths)."""
+    import torch
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    w_ih, w_hh = r(D, 4 * H) / H ** 0.5, r(H, 4 * H) / H ** 0.5
+    return (w_ih, w_hh, 0.1 * r(4 * H), r(T, B, D), 0.5 * r(B, H),
+            0.5 * r(B, H))
 
 
 def check_proj(name, gen, T, B, D, H, save=True, cot=(True, True, True),
@@ -871,9 +890,7 @@ def check_proj(name, gen, T, B, D, H, save=True, cot=(True, True, True),
         lstm_proj_bwd_plain, lstm_proj_fwd_plain,
     )
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    w_ih, w_hh = r(D, 4 * H) / H ** 0.5, r(H, 4 * H) / H ** 0.5
-    b, xs, h0, c0 = 0.1 * r(4 * H), r(T, B, D), 0.5 * r(B, H), 0.5 * r(B, H)
-    args = (w_ih, w_hh, b, xs, h0, c0)
+    args = w_ih, w_hh, b, xs, h0, c0 = proj_inputs(gen, T, B, D, H)
 
     def backward(out):
         ys, _, _, gates, cs = out
@@ -899,12 +916,7 @@ def proj_kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(11)
     timed, ferrs, berrs = {}, [], []
     hT_only = (False, True, False)
-    main = [   # name, T, B, D, H, residuals
-        ("G_encoder_T8_B4096_D16_H32", 8, 4096, 16, 32, True),
-        ("G_encoder_T8_B4096_D16_H32_nograd", 8, 4096, 16, 32, False),
-        ("D_encoder_T20_B4096_D16_H48", 20, 4096, 16, 48, True),
-        ("D_encoder_T20_B8192_D16_H48", 20, 8192, 16, 48, True)]
-    for name, T, B, D, H, save in main:
+    for name, T, B, D, H, save in PROJ_MAIN:
         f, b = check_proj(name, gen, T, B, D, H, save, hT_only, timed)
         ferrs.append(f)
         berrs.append(b)
@@ -1573,7 +1585,9 @@ def main():
               "grouptraj/ops/pallas_lstm.py:45", k5_err, k56_shape,
               proj_timed[k56_shape]["fwd"],
               library_ms=d_lib["library_fwd_train_ms"],
-              shapes={n: t["fwd"] for n, t in proj_timed.items()}),
+              **tc_more(proj_timed[k56_shape]["fwd"],
+                        {n: t["fwd"] for n, t in proj_timed.items()},
+                        "lstm_proj_fwd_kernel")),
         entry("lstm_proj_bwd", "grouptraj_torch/csrc/lstm_proj_bwd.cu",
               "grouptraj/ops/pallas_lstm.py:71", k6_err, k56_shape,
               proj_timed[k56_shape]["bwd"],

@@ -1,9 +1,9 @@
 // Tensor-core helpers shared by the kernels that run 3xTF32 products on
-// mma.sync (the pool pair tile, pool_core.cuh; the LSTM forward K3,
-// lstm_fused_fwd.cu, and backwards K4, lstm_fused_bwd.cu, and K6,
-// lstm_proj_bwd.cu): a 16-byte cp.async, the TF32 rounding of the split
-// x = hi + lo, one m16n8k8 TF32 product with float32 accumulate, and the
-// shared-memory row stride of the LSTM tiles.
+// mma.sync (the pool pair tile, pool_core.cuh; the LSTM forwards K3,
+// lstm_fused_fwd.cu, and K5, lstm_proj_fwd.cu, and backwards K4,
+// lstm_fused_bwd.cu, and K6, lstm_proj_bwd.cu): a 16-byte cp.async, the
+// TF32 rounding of the split x = hi + lo, one m16n8k8 TF32 product with
+// float32 accumulate, and the shared-memory row strides of the LSTM tiles.
 
 #pragma once
 
@@ -36,6 +36,13 @@ __device__ __forceinline__ void split(const float (&x)[4], uint32_t (&hi)[4],
   }
 }
 
+// {hi.x, hi.y, lo.x, lo.y} of the split of (x, y)
+__device__ __forceinline__ float4 split2(float x, float y) {
+  const float hx = __uint_as_float(tf32(x)), hy = __uint_as_float(tf32(y));
+  return make_float4(hx, hy, __uint_as_float(tf32(x - hx)),
+                     __uint_as_float(tf32(y - hy)));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          float b0, float b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -49,6 +56,12 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // lanes and float reads of 4 rows x 8 lanes each hit 32 banks once
 __host__ __device__ constexpr int stride8(int n) {
   return n + ((8 - n % 32) + 32) % 32;
+}
+
+// a row stride (floats) >= n that is 16 mod 32: float4 accesses of 2 rows x
+// 4 lanes (a quarter warp) hit 32 banks once
+__host__ __device__ constexpr int stride16(int n) {
+  return n + ((16 - n % 32) + 32) % 32;
 }
 
 }  // namespace tc_tf32

@@ -102,6 +102,8 @@ def lstm_proj_fwd(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
     _check_sizes(T, B, D, H, w_hh.is_cuda)
     if not w_hh.is_cuda:
         return lstm_proj_fwd_plain(w_ih, w_hh, b, xs, h0, c0, save)
+    # the kernel copies xs by cp.async, 16 bytes at a time
+    xs, h0, c0 = (_aligned16(t) for t in (xs, h0, c0))
     lib = _fwd_lib()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w_hh.device)

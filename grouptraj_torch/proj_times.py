@@ -1,13 +1,13 @@
 """Times the LSTM kernels K3 (``lstm_fused_fwd``, the whole-loop
-recurrence), K4 (``lstm_fused_bwd``, its backward) and K6
-(``lstm_proj_bwd``, the backward of the LSTM with its input projection in
-the kernel) of one checkout of this port on one CUDA card, at the shapes
-chip_smoke.py times, so that two versions of a kernel can be compared in
-one machine session:
+recurrence), K4 (``lstm_fused_bwd``, its backward), K5 (``lstm_proj_fwd``,
+the LSTM with its input projection in the kernel) and K6
+(``lstm_proj_bwd``, K5's backward) of one checkout of this port on one CUDA
+card, at the shapes chip_smoke.py times, so that two versions of a kernel
+can be compared on one card in one run:
 
     python3 grouptraj_torch/proj_times.py                  # this checkout
     python3 grouptraj_torch/proj_times.py --root OTHER     # another one
-    python3 grouptraj_torch/proj_times.py --kernel K3      # K3 only
+    python3 grouptraj_torch/proj_times.py --kernel K5      # K5 only
 
 ``--root`` is the directory that holds the other checkout's
 ``grouptraj_torch/`` (its kernels are built there); the inputs and the
@@ -16,8 +16,10 @@ every root. Inputs as chip_smoke.py's check_lstm (K3 at its six main
 shapes, ``LSTM_MAIN``, residuals saved where the training step saves them;
 K4 at those of them that save residuals: a non-zero initial state, K3's
 residuals, a cotangent on hT only for the encoders and on ys for the
-decoder) and check_proj (K6: K5's residuals, a cotangent on hT only) make
-them. Per shape it prints one JSON line:
+decoder) and check_proj (K5 at its four main shapes, ``PROJ_MAIN``, with
+or without residuals as the main paths save them; K6 at those that save
+them: K5's residuals, a cotangent on hT only) make them. Per shape it
+prints one JSON line:
 
 - ``ms``: chip_smoke.py's ``time_ms`` (median of 20 single-call CUDA-event
   times, each call queued behind a ~1 ms sleep kernel, so the events hold
@@ -37,11 +39,6 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# (name, T, B, D, H): chip_smoke.py's timed shapes that run K6
-K6_SHAPES = (("G_encoder_T8_B4096_D16_H32", 8, 4096, 16, 32),
-             ("D_encoder_T20_B4096_D16_H48", 20, 4096, 16, 48),
-             ("D_encoder_T20_B8192_D16_H48", 20, 8192, 16, 48))
 
 
 def k3_calls(cs, seed):
@@ -72,18 +69,30 @@ def k4_calls(cs, seed):
         yield name, lambda: lstm_fused_bwd(*bargs)
 
 
-def k6_calls(seed):
-    """(shape name, one K6 call) at each of K6_SHAPES."""
+def k5_calls(cs, seed):
+    """(shape name, one K5 call) at each of chip_smoke's PROJ_MAIN."""
+    import torch
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, T, B, D, H, save in cs.PROJ_MAIN:
+        args = cs.proj_inputs(gen, T, B, D, H)
+        yield name, lambda: lstm_proj_fwd(*args, save=save)
+
+
+def k6_calls(cs, seed):
+    """(shape name, one K6 call) at each of chip_smoke's PROJ_MAIN that
+    saves residuals."""
     import torch
     from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    for name, T, B, D, H in K6_SHAPES:
-        w_ih, w_hh = r(D, 4 * H) / H ** 0.5, r(H, 4 * H) / H ** 0.5
-        b, xs, h0, c0 = 0.1 * r(4 * H), r(T, B, D), 0.5 * r(B, H), 0.5 * r(B, H)
+    for name, T, B, D, H, save in cs.PROJ_MAIN:
+        if not save:
+            continue
+        w_ih, w_hh, b, xs, h0, c0 = cs.proj_inputs(gen, T, B, D, H)
         ys, _, _, gates, cs_ = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0,
                                              save=True)
-        bargs = (w_ih, w_hh, xs, h0, c0, ys, gates, cs_, None, r(B, H), None)
+        dhT = torch.randn(B, H, generator=gen, device="cuda")
+        bargs = (w_ih, w_hh, xs, h0, c0, ys, gates, cs_, None, dhT, None)
         yield name, lambda: lstm_proj_bwd(*bargs)
 
 
@@ -91,11 +100,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose grouptraj_torch is timed")
-    ap.add_argument("--kernel", choices=("K3", "K4", "K6", "all"),
+    ap.add_argument("--kernel", choices=("K3", "K4", "K5", "K6", "all"),
                     default="all")
     ap.add_argument("--seed", type=int, default=None,
                     help="input seed (default: chip_smoke's, 7 for K3 and "
-                         "K4 and 11 for K6)")
+                         "K4 and 11 for K5 and K6)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     spec = importlib.util.spec_from_file_location(
@@ -116,9 +125,12 @@ def main():
     if args.kernel in ("K4", "all"):
         kernels.append(("K4", k4_calls(cs, 7 if args.seed is None
                                         else args.seed)))
+    if args.kernel in ("K5", "all"):
+        kernels.append(("K5", k5_calls(cs, 11 if args.seed is None
+                                        else args.seed)))
     if args.kernel in ("K6", "all"):
-        kernels.append(("K6", k6_calls(11 if args.seed is None
-                                       else args.seed)))
+        kernels.append(("K6", k6_calls(cs, 11 if args.seed is None
+                                        else args.seed)))
     for kernel, calls in kernels:
         for name, run in calls:
             ms = cs.time_ms(run)

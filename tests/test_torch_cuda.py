@@ -6,7 +6,8 @@ iteration through both kernels against the plain pool; K3
 plain versions, two K3 and two K4 calls that give equal bits, K3 and K4
 on misaligned views, and a training iteration with ``lstm_impl='fused'``
 against ``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
-against their plain versions, and a training iteration with
+against their plain versions, two K5 and two K6 calls that give equal bits,
+K5 on misaligned views, and a training iteration with
 ``lstm_impl='pallas'`` against ``'scan'``. Marked ``cuda``; each test skips
 without a CUDA device.
 This file imports no JAX, so on a machine without it run
@@ -429,6 +430,32 @@ def test_proj_kernels_match_plain(cuda, T, B, D, H):
             assert x.shape == y.shape and bool(torch.isfinite(x).all())
             assert (x - y).abs().max().item() <= 1e-4 * max(
                 y.abs().max().item(), 1e-30)
+
+
+def test_proj_forward_repeats_bit_for_bit(cuda):
+    """K5 sums every product in a fixed order and uses no atomics: two calls
+    on the same inputs give the same bits, residuals saved."""
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    w_ih, w_hh, b, xs, h0, c0, _ = _proj_case(cuda, 20, 4097, 16, 48, seed=5)
+    first, second = (lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+                     for _ in range(2))
+    for x, y in zip(first, second):
+        assert torch.equal(x, y) and x.abs().max() > 0
+
+
+def test_proj_forward_takes_misaligned_views(cuda):
+    """K5 copies xs 16 bytes at a time and reads h0 and c0 eight bytes at a
+    time: the wrapper hands it a copy of a view that starts off a 16-byte
+    boundary, and the result is the plain version's."""
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import lstm_proj_fwd_plain
+    w_ih, w_hh, b, xs, h0, c0, _ = _proj_case(cuda, 6, 70, 16, 48, seed=6)
+    got = lstm_proj_fwd(w_ih, w_hh, b, _shifted(xs), _shifted(h0),
+                        _shifted(c0), save=True)
+    ref = lstm_proj_fwd_plain(w_ih, w_hh, b, xs, h0, c0, save=True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        assert (x - y).abs().max().item() <= 1e-5
 
 
 def test_proj_backward_repeats_bit_for_bit(cuda):

@@ -1,9 +1,10 @@
 """The arithmetic of the tensor-core LSTM kernels (the backwards K6,
 ``csrc/lstm_proj_bwd.cu``, and K4, ``csrc/lstm_fused_bwd.cu``, and the
-forward K3, ``csrc/lstm_fused_fwd.cu``) on the CPU: a plain emulation of
-the kernels' 3xTF32 products, written here and not in the package (the
-port keeps one plain version of each, ``ops/lstm.py:lstm_proj_bwd_plain``,
-``fused_recurrence_bwd_plain`` and ``_fused_fwd_plain``).
+forwards K3, ``csrc/lstm_fused_fwd.cu``, and K5, ``csrc/lstm_proj_fwd.cu``)
+on the CPU: a plain emulation of the kernels' 3xTF32 products, written here
+and not in the package (the port keeps one plain version of each,
+``ops/lstm.py:lstm_proj_bwd_plain``, ``fused_recurrence_bwd_plain``,
+``_fused_fwd_plain`` and ``lstm_proj_fwd_plain``).
 Per step a kernel forms dz in float32, splits it into TF32 hi + lo (10
 mantissa bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``),
 and runs its two products as ``lo_a hi_b + hi_a lo_b + hi_a hi_b``: K6
@@ -34,6 +35,15 @@ held against the forward rules of ``pallas_fused.py``'s
 cs) at the encoders' widths (gx variant), the decoder variant and the
 widest width, every output within 1e-5 absolute (``LSTM_FWD_ATOL`` in
 chip_smoke.py, the kernel's tolerance on the card).
+
+K5's step is ``z = (lo_a hi_W + hi_a lo_W + hi_a hi_W) + b`` with ``a =
+[x_t | h_{t-1}]`` and ``W = [W_ih ; W_hh]`` (the product from zero, d
+before h, b last: the JAX kernel's order) and K3's gate math, held against
+``pallas_lstm.py:_lstm_pallas_fwd_impl`` (its ``_fwd_kernel``, in interpret
+mode, which also gives the residuals) at the encoders' widths (D = 16, H =
+32 and 48), the smallest (D = 4, H = 8: half a k-step of x, which the
+kernel pads with zeros) and the widest (H = 64), every output within 1e-5
+absolute.
 """
 
 import jax
@@ -42,6 +52,7 @@ import pytest
 import torch
 
 import grouptraj.ops.pallas_fused as PF
+import grouptraj.ops.pallas_lstm as PL
 from grouptraj.ops.lstm import lstm_scan as jax_lstm_scan
 from grouptraj_torch.ops.lstm import _fused_fwd_plain, lstm_proj_fwd_plain
 
@@ -119,18 +130,17 @@ def _k4_3xtf32(w, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx):
     return dgx, dw, db, dh, dc
 
 
-def _k3_3xtf32(w, gx, b, h0, c0, T):
-    """K3's forward with its product split as on the tensor cores and its
-    gate math as the kernel forms it: sigmoid(x) = 1 / (1 + exp(-x)), x
-    clamped at -80, and tanh(x) = 2 sigmoid(2x) - 1; gx or b None.
-    -> (ys, hT, cT, gates, cs)."""
-    H = w.shape[0]
+def _forward(step, h0, c0, T):
+    """T steps of a forward kernel with its gate math as the kernels form
+    it: sigmoid(x) = 1 / (1 + exp(-x)), x clamped at -80, and tanh(x) = 2
+    sigmoid(2x) - 1; ``step(t, h)`` gives z_t. -> (ys, hT, cT, gates,
+    cs)."""
+    H = h0.shape[1]
     sigmoid = lambda x: 1 / (1 + torch.exp(-x.clamp(min=-80)))
     tanh = lambda x: 2 * sigmoid(2 * x) - 1
     h, c, ys, gates, cs = h0, c0, [], [], []
     for t in range(T):
-        z = (gx[t] if gx is not None else b) + _product(h, w)
-        zi, zf, zg, zo = z.split(H, dim=-1)
+        zi, zf, zg, zo = step(t, h).split(H, dim=-1)
         i, f, g, o = sigmoid(zi), sigmoid(zf), tanh(zg), sigmoid(zo)
         c = f * c + i * g
         h = o * tanh(c)
@@ -138,6 +148,21 @@ def _k3_3xtf32(w, gx, b, h0, c0, T):
         gates.append(torch.cat([i, f, g, o], dim=-1))
         cs.append(c)
     return torch.stack(ys), h, c, torch.stack(gates), torch.stack(cs)
+
+
+def _k3_3xtf32(w, gx, b, h0, c0, T):
+    """K3's forward with its product split as on the tensor cores, ``z =
+    pre + split product`` (pre = gx_t, or b where gx is None)."""
+    return _forward(lambda t, h: (gx[t] if gx is not None else b)
+                    + _product(h, w), h0, c0, T)
+
+
+def _k5_3xtf32(w_ih, w_hh, b, xs, h0, c0):
+    """K5's forward: ``z = [x_t | h] · [W_ih ; W_hh]`` split as on the
+    tensor cores, from zero, then ``+ b``."""
+    w = torch.cat([w_ih, w_hh])
+    return _forward(lambda t, h: _product(torch.cat([xs[t], h], dim=-1), w)
+                    + b, h0, c0, xs.shape[0])
 
 
 def _close(got, want):
@@ -252,6 +277,33 @@ def test_k3_split_emulation_matches_pallas(monkeypatch, T, B, H, with_gx):
     got = {"ys": ys, "gates": gates, "cs": cs}
     if with_gx:
         got.update(hT=hT, cT=cT)
+    for name, g in got.items():
+        err = np.abs(g.numpy() - np.asarray(want[name])).max()
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("T,B,D,H", [(20, 40, 16, 48), (8, 64, 16, 32),
+                                     (5, 9, 4, 8), (4, 33, 16, 64)])
+def test_k5_split_emulation_matches_pallas(monkeypatch, T, B, D, H):
+    orig = PL.pl.pallas_call
+
+    def interpreted(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(PL.pl, "pallas_call", interpreted)
+    rng = np.random.default_rng(T * B + D + H)
+    n = lambda scale, *s: (scale * rng.normal(size=s)).astype(np.float32)
+    w_ih, w_hh = n(1 / np.sqrt(H), D, 4 * H), n(1 / np.sqrt(H), H, 4 * H)
+    b, xs, h0, c0 = n(0.1, 4 * H), n(1.0, T, B, D), n(0.5, B, H), n(0.5, B, H)
+    ys, hT, cT, gates, cs = PL._lstm_pallas_fwd_impl(w_ih, w_hh, b, xs, h0,
+                                                     c0)
+    want = {"ys": ys, "hT": hT, "cT": cT, "gates": gates[:, :B],
+            "cs": cs[:, :B]}
+
+    t = lambda x: torch.from_numpy(np.asarray(x))
+    got = dict(zip(("ys", "hT", "cT", "gates", "cs"), _k5_3xtf32(
+        t(w_ih), t(w_hh), t(b), t(xs), t(h0), t(c0))))
     for name, g in got.items():
         err = np.abs(g.numpy() - np.asarray(want[name])).max()
         assert err <= 1e-5, (name, err)
