@@ -53,7 +53,18 @@ Phases, each of which fails the run on any error:
    turns;
 5. profile: torch.profiler over three bf16 calls at S=64, N=64 — device
    busy share and time by kernel (table in chiprun_out/profile_serve.txt);
-6. train: ModelConfig()/TrainConfig() at full width (batch 64, best_k=20)
+6. eval: a synthetic ETH/UCY-format split (3 files, ~1,600 windows of
+   2-48 pedestrians) windowed by the port's TrajectoryDataset on the
+   native path, checked bit-identical to its numpy path; evaluate_bucketed
+   (3 buckets, batch 64, k=20) for the zoo's zara1_12 (gat), univ_12
+   (gat-mh) and zara1_12_gcnpool on the scan, fused and pallas routes with
+   shared injected noises, with the launch counts of each route's run:
+   kernel routes against scan and, on the first batch of each bucket, the
+   card against the port on the CPU (ADE/FDE within 1e-4 relative); ms
+   per pass and windows/s of each route in turns; a profile of one
+   fused batch (chiprun_out/profile_eval_fused.txt); the univ_12 and
+   zara1_12_gcnpool Predictors on the card against the CPU;
+7. train: ModelConfig()/TrainConfig() at full width (batch 64, best_k=20)
    from a seeded state on synthetic device-resident data: one iteration's
    losses and every parameter gradient with the kernels against the plain
    pool core, and on a small batch against the port on the CPU; then
@@ -1172,6 +1183,208 @@ def profile_phase(run, unit, out_name, wall_ms):
           f"{100 * sum(own.values()) / wall_ms:.1f}% of wall)")
 
 
+# ----------------------------------------------------------------- eval
+
+EVAL_CKPTS = ("zara1_12", "univ_12", "zara1_12_gcnpool")   # gat, gat-mh, gcn-pool
+EVAL_ROUTES = ("scan", "fused", "pallas")
+EVAL_BATCH = 64
+EVAL_BUCKETS = 3
+EVAL_RTOL = 1e-4             # ADE / FDE: kernel routes vs scan, card vs CPU
+
+
+def _ckpt(name):
+    return os.path.join(HERE, "models", "grouptraj", f"{name}_with_model.pt")
+
+
+def eval_phase(batches):
+    """Bo20 evaluation through the port's data layer and evaluate_bucketed
+    on a synthetic ETH/UCY-format split: windowing on the native path
+    (bit-identical to the numpy path), then three zoo models (gat, gat-mh,
+    gcn-pool) on the three LSTM routes with shared injected noises; each
+    route's main path runs with every count at 0 just before it and is
+    read just after. Then a few batches against the port on the CPU, and
+    the gat-mh and gcn-pool Predictors against the CPU."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from grouptraj_torch.compat import config_from_checkpoint_args
+    from grouptraj_torch.data import TrajectoryDataset, _native
+    from grouptraj_torch.data import windowing_backend
+    from grouptraj_torch.data.batching import DenseDataset, DenseLoader
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.eval import evaluate, evaluate_bucketed
+    from grouptraj_torch.eval.evaluate_model import get_generator
+    from grouptraj_torch.serve import Predictor
+    from grouptraj_torch.train.checkpoint import load_checkpoint
+    from grouptraj_torch.train.device_data import make_buckets
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if not _native.available():                   # g++ at first use
+        fail(f"eval: the native windowing library did not build: "
+             f"{_native.error()}")
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="grouptraj_eval_")
+    try:
+        write_scene_files(tmp, n_files=3, frames=560, max_peds=57, seed=0)
+        t0 = time.perf_counter()
+        dset = TrajectoryDataset(tmp, use_native=True)
+        native_s = time.perf_counter() - t0
+        backend = windowing_backend()
+        t0 = time.perf_counter()
+        ref = TrajectoryDataset(tmp, use_native=False)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    if backend != "native":
+        fail(f"eval: windowing ran on the {backend} path, not native")
+    if len(dset) != len(ref) or not all(
+            np.array_equal(getattr(a, k), getattr(b, k))
+            for a, b in zip(dset.windows, ref.windows)
+            for k in ("xy", "rel", "group", "non_linear", "loss_mask")):
+        fail("eval: native windows differ from the numpy path's")
+    sizes = dset.scene_sizes()
+    buckets = make_buckets(dset, EVAL_BUCKETS, EVAL_BATCH)
+    widths = [w for w, idx in buckets
+              for _ in range(math.ceil(len(idx) / EVAL_BATCH))]
+    print(f"eval data: {len(dset)} windows of {sizes.min()}-{sizes.max()} "
+          f"pedestrians (median {int(np.median(sizes))}) from 3 synthetic "
+          f"files; windowing path {backend} {native_s * 1e3:.1f} ms (its "
+          f"g++ build {build_s:.1f} s before), numpy "
+          f"{numpy_s * 1e3:.1f} ms, bit-identical; buckets "
+          f"{[(w, len(i)) for w, i in buckets]}, {len(widths)} batches "
+          f"of {EVAL_BATCH}")
+
+    # one noise tensor per batch, shared by every model and route
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = [torch.randn((K, EVAL_BATCH, w, 8), generator=gen, device="cuda")
+             for w in widths]
+
+    def noises(i, S, N):
+        if table[i].shape[1:3] != (S, N):
+            fail(f"eval: batch {i} is [{S}, {N}], the noise table's "
+                 f"{tuple(table[i].shape)}")
+        return table[i]
+
+    # the parity subset: the first batch of each bucket
+    sub = [next(iter(DenseLoader(DenseDataset(dset, w, indices=idx),
+                                 EVAL_BATCH, shuffle=False)))
+           for w, idx in buckets]
+    sub_noise = [torch.randn((K, EVAL_BATCH, b.valid.shape[1], 8),
+                             generator=gen, device="cuda") for b in sub]
+    per_batch = {"scan": {}, "fused": {"lstm_fused_fwd": 2},
+                 "pallas": {"lstm_proj_fwd": 1}}
+    launches = {impl: dict.fromkeys(all_counts(), 0) for impl in EVAL_ROUTES}
+    pass_ms = {}
+    for name in EVAL_CKPTS:
+        cfg, model = get_generator(load_checkpoint(_ckpt(name)))
+        model = model.to("cuda").eval()
+        want_k1 = 0 if cfg.pooling_type == "gcn" else 1
+        out = {}
+        for impl in EVAL_ROUTES:       # the main path of each route
+            reset_counts()
+            out[impl] = evaluate_bucketed(
+                model, dset, K, EVAL_BATCH, EVAL_BUCKETS, noises=noises,
+                impl=impl, device="cuda")
+            torch.cuda.synchronize()
+            counts = all_counts()
+            for k_, v in counts.items():
+                launches[impl][k_] += v
+            expect = {k_: len(widths) * per_batch[impl].get(k_, 0)
+                      for k_ in counts}
+            expect["pool_core_fwd"] = len(widths) * want_k1
+            print(f"eval {name} {impl} main path launches: "
+                  f"{json.dumps(counts)}")
+            if counts != expect:
+                fail(f"eval {name} {impl}: launches {counts}, expected "
+                     f"{expect} ({per_batch[impl]} and K1 x{want_k1} a "
+                     f"batch)")
+            if not all(math.isfinite(v) and v > 0 for v in out[impl]):
+                fail(f"eval {name} {impl}: ADE/FDE {out[impl]} not finite")
+        for impl in ("fused", "pallas"):
+            d = max(abs(a / b - 1) for a, b in zip(out[impl], out["scan"]))
+            print(f"eval {name}: {impl} ADE/FDE {out[impl][0]:.6f}/"
+                  f"{out[impl][1]:.6f} vs scan {out['scan'][0]:.6f}/"
+                  f"{out['scan'][1]:.6f}, max relative diff {d:.2e} "
+                  f"(tolerance {EVAL_RTOL})")
+            if not d <= EVAL_RTOL:
+                fail(f"eval {name}: the {impl} route disagrees with scan")
+
+        # a few batches against the port on the CPU (plain versions)
+        cpu_model = get_generator(load_checkpoint(_ckpt(name)))[1]
+        ref = evaluate(cpu_model, sub, K, noises=lambda i, S, N:
+                       sub_noise[i].cpu(), impl="scan", device="cpu")
+        for impl in EVAL_ROUTES:
+            got = evaluate(model, sub, K, noises=lambda i, S, N:
+                           sub_noise[i], impl=impl, device="cuda")
+            d = max(abs(a / b - 1) for a, b in zip(got, ref))
+            print(f"eval {name} {impl}: card vs CPU on {len(sub)} batches "
+                  f"max relative diff {d:.2e} (tolerance {EVAL_RTOL})")
+            if not d <= EVAL_RTOL:
+                fail(f"eval {name}: the card ({impl}) disagrees with the CPU")
+
+        # wall time per pass, the routes in turns
+        secs = {impl: [] for impl in EVAL_ROUTES}
+        for impl in EVAL_ROUTES + EVAL_ROUTES[::-1]:
+            t0 = time.perf_counter()
+            evaluate_bucketed(model, dset, K, EVAL_BATCH, EVAL_BUCKETS,
+                              noises=noises, impl=impl, device="cuda")
+            secs[impl].append(time.perf_counter() - t0)   # read back: synced
+        for impl, v in secs.items():
+            med = statistics.median(v)
+            pass_ms[f"{name}_{impl}"] = med * 1e3
+            print(f"eval {name} {impl}: {med * 1e3:.1f} ms per pass "
+                  f"(median of 2), {len(dset) / med:.0f} windows/s, "
+                  f"{med * 1e3 / len(widths):.2f} ms per batch")
+        if name == "univ_12":              # one batch of the widest bucket
+            def run():
+                return evaluate(model, sub[-1:], K, noises=lambda i, S, N:
+                                sub_noise[-1], impl="fused", device="cuda")
+            run()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run()                                    # read back: synced
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls) * 1e3
+            print(f"eval {name} fused: {wall:.2f} ms per batch of the "
+                  f"widest bucket (median of 5)")
+            profile_phase(run, "eval batch (univ_12, fused, widest bucket)",
+                          "profile_eval_fused.txt", wall)
+        del model, cpu_model
+
+    # the gat-mh and gcn-pool Predictors, card against CPU
+    sc, gr = batches["S64_N64"][0][:8], batches["S64_N64"][1][:8]
+    for name in ("univ_12", "zara1_12_gcnpool"):
+        ckpt = load_checkpoint(_ckpt(name))
+        cfg = config_from_checkpoint_args(ckpt["args"], ckpt["g_best_state"])
+        card = Predictor(ckpt["g_best_state"], cfg, num_samples=K,
+                         param_dtype=None, device="cuda")
+        cpu = Predictor(ckpt["g_best_state"], cfg, num_samples=K,
+                        param_dtype=None, device="cpu")
+        S, N = card._s_bucket(len(sc)), card._bucket(max(map(len, sc)))
+        z = torch.randn((K, S, N, 8), generator=gen, device="cuda")
+        got = card.predict_batch(sc, gr, noises=z)
+        want = cpu.predict_batch(sc, gr, noises=z.cpu())
+        d = max(np.abs(o - r).max() for o, r in zip(got, want))
+        print(f"eval Predictor {name} ({cfg.graph_module}, "
+              f"{cfg.pooling_type}): card vs CPU max |dpos| = {d:.3e} m "
+              f"(tolerance {SERVE_ATOL} m)")
+        if not (d <= SERVE_ATOL and all(np.isfinite(o).all() for o in got)):
+            fail(f"eval Predictor {name}: the card disagrees with the CPU")
+
+    for impl, kernel in (("scan", "pool_core_fwd"), ("fused", "lstm_fused_fwd"),
+                         ("pallas", "lstm_proj_fwd")):
+        if launches[impl][kernel] == 0 or launches[impl]["pool_core_fwd"] == 0:
+            fail(f"eval: the {impl} route launched {kernel} or K1 no time")
+    print(f"eval launches per batch (pool_net models): K1 1, K3 2 on fused, "
+          f"K5 1 on pallas; totals {json.dumps(launches)}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, pass_ms
+
+
 # ----------------------------------------------------------------- train
 
 def _grad_report(what, names, got, ref):
@@ -1517,6 +1730,7 @@ def main():
     profile_phase(lambda: route_call("fused"), "fused serving call f32",
                   "profile_serve_fused.txt", route_call_ms["fused_S64_N64"])
     del p16, p32, route_call
+    eval_launches, _ = eval_phase(batches)
     train_launches = train_phase()
 
     # launches: every main path, each driven with the counts at 0 just
@@ -1534,7 +1748,10 @@ def main():
              "serve_pallas": route_serve_launches["pallas"],
              "train": train_launches["scan"],
              "train_fused": train_launches["fused"],
-             "train_pallas": train_launches["pallas"]}
+             "train_pallas": train_launches["pallas"],
+             "eval": eval_launches["scan"],
+             "eval_fused": eval_launches["fused"],
+             "eval_pallas": eval_launches["pallas"]}
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               **more):

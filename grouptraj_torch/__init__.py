@@ -3,12 +3,16 @@
 A second package beside the JAX reference ``grouptraj/``. It imports torch
 and numpy, never jax, optax or grouptraj; every TPU kernel on a ported path
 is a hand-written CUDA kernel under ``csrc/`` with a plain PyTorch twin in
-the same module. Ported for the ``gat`` preset: the serving path and one
-training iteration (``train/steps.py``: d-step + g-step):
+the same module. Ported: the data layer (``data/``), Bo20 evaluation
+(``eval/``) and serving for every zoo model (``gat``, ``gat-mh``,
+``gcn-pool``); one training iteration (``train/steps.py``: d-step +
+g-step) of the ``gat`` preset:
 
     from grouptraj_torch.serve import Predictor
     p = Predictor.from_checkpoint("models/grouptraj/zara1_12_with_model.pt")
     samples = p.predict(xy)        # xy [n, obs_len, 2] -> [k, n, pred_len, 2]
+
+    python -m grouptraj_torch.eval.evaluate_model --model_path CKPT
 
     from grouptraj_torch.train.steps import init_train_state, train_iterations
     state = init_train_state(cfg, tcfg)

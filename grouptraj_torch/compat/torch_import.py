@@ -6,8 +6,8 @@ layouts (``encoder.encoder.weight_ih_l0``, ``pool_net.mlp_pre_pool.2.weight``,
 ...), so a zoo ``g_state`` loads directly. :func:`params_from_jax` is the
 bridge from a JAX generator parameter tree (``[in, out]`` weights, gate
 order i,f,g,o) to that state dict — the port's own copy of the
-``export_state_dicts`` mapping for the ``gat`` preset — and takes the
-discriminator's tree as well.
+``export_state_dicts`` mapping for the ``gat``, ``gat-mh`` and ``gcn-pool``
+generators — and takes the discriminator's tree as well.
 """
 
 from __future__ import annotations
@@ -116,12 +116,14 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
                     ) -> Dict[str, np.ndarray]:
     """JAX params (numpy leaves, ``jax.device_get(params)``) of the
     generator or (``kind='discriminator'``) the discriminator -> the
-    torch-named state dict of the port's ``gat``-preset module. Keys and
-    layouts equal ``grouptraj.compat.export_state_dicts(tree, kind)`` for
-    that preset. A JAX ``TrainState``'s ``g_params``/``d_params`` thus
-    become the port's G and D; optimizer moments are not carried (both
-    sides start Adam from zero) — bridging a non-zero optimizer state
-    waits for the port's checkpoint save."""
+    torch-named state dict of the port's module. Keys and layouts equal
+    ``grouptraj.compat.export_state_dicts(tree, kind)`` for the generators
+    the port builds (``gat``, ``gat-mh``, ``gcn-pool``) and the ``global``
+    discriminator; other trees raise NotImplementedError. A JAX
+    ``TrainState``'s ``g_params``/``d_params`` thus become the port's G and
+    D; optimizer moments are not carried (both sides start Adam from zero)
+    — bridging a non-zero optimizer state waits for the port's checkpoint
+    save."""
     out: Dict[str, np.ndarray] = {}
 
     def lin(prefix, p):
@@ -141,9 +143,18 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
             # make_mlp layout: Linear, activation -> Linear indices 0, 2, ...
             lin(f"{prefix}.{2 * idx}", layer["linear"])
 
+    def gcn(prefix, p):
+        for i, w in enumerate(p["W"]):
+            out[f"{prefix}.W.{i}"] = np.asarray(w)
+
     def pool_net(prefix, pn):
         lin(f"{prefix}.spatial_embedding", pn["spatial_embedding"])
-        mlp(f"{prefix}.mlp_pre_pool", pn["mlp_pre_pool"])
+        if "mlp_pre_pool" in pn:
+            mlp(f"{prefix}.mlp_pre_pool", pn["mlp_pre_pool"])
+            return
+        gcn(f"{prefix}.gcn_pooling_net_intra", pn["gcn_pooling_net_intra"])
+        gcn(f"{prefix}.gcn_pooling_net_inter", pn["gcn_pooling_net_inter"])
+        lin(f"{prefix}.out_embedding", pn["out_embedding"])
 
     def gat(prefix, p):
         for i, att in enumerate(p["attentions"]):
@@ -153,8 +164,9 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
         out[f"{prefix}.out_att.a"] = np.asarray(p["out_att"]["a"])
 
     later = NotImplementedError(
-        "params_from_jax covers the 'gat' preset with the 'global' "
-        "discriminator; the other presets are not ported yet")
+        "params_from_jax covers the 'gat', 'gat-mh' and 'gcn-pool' "
+        "generators and the 'global' discriminator; the other presets are "
+        "not ported yet")
     if kind == "discriminator":
         if (set(tree) != {"encoder", "real_classifier", "pool_net"}
                 or "mlp_pre_pool" not in tree["pool_net"]):
@@ -167,10 +179,15 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
     if kind != "generator":
         raise ValueError(f"kind must be 'generator' or 'discriminator', "
                          f"got {kind!r}")
-    extra = set(tree) - {"encoder", "decoder", "pool_net", "gatencoder"}
-    if (extra or "pool_net" in tree["decoder"]
-            or "gat_net" in tree.get("gatencoder", {})
-            or "mlp_pre_pool" not in tree.get("pool_net", {})):
+    ge = tree.get("gatencoder", {})
+    graph = ("gat-mh" if "gat_net" in ge else "gat" if ge
+             else "none" if "mlp_decoder_context" in tree else None)
+    gcn_pool = "gcn_pooling_net_intra" in tree.get("pool_net", {})
+    extra = set(tree) - {"encoder", "decoder", "pool_net", "gatencoder",
+                         "mlp_decoder_context"}
+    if (extra or "pool_net" in tree["decoder"] or "pool_net" not in tree
+            or graph is None or (graph == "none" and not gcn_pool)
+            or (graph == "gat" and "mlp_decoder_context" in tree)):
         raise later
     lin("encoder.spatial_embedding", tree["encoder"]["spatial_embedding"])
     lstm("encoder.encoder", tree["encoder"]["lstm"])
@@ -178,8 +195,15 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
     lstm("decoder.decoder", tree["decoder"]["lstm"])
     lin("decoder.hidden2pos", tree["decoder"]["hidden2pos"])
     pool_net("pool_net", tree["pool_net"])
-    ge = tree["gatencoder"]
-    gat("gatencoder.gat_intra", ge["gat_intra"])
-    gat("gatencoder.gat_inter", ge["gat_inter"])
-    lin("gatencoder.out_embedding", ge["out_embedding"])
+    if graph == "gat-mh":
+        for i, layer in enumerate(ge["gat_net"]["layer_stack"]):
+            pre = f"gatencoder.gat_net.layer_stack.{i}"
+            for name in ("w", "a_src", "a_dst", "bias"):
+                out[f"{pre}.{name}"] = np.asarray(layer[name])
+    elif graph == "gat":
+        gat("gatencoder.gat_intra", ge["gat_intra"])
+        gat("gatencoder.gat_inter", ge["gat_inter"])
+        lin("gatencoder.out_embedding", ge["out_embedding"])
+    if "mlp_decoder_context" in tree:
+        mlp("mlp_decoder_context", tree["mlp_decoder_context"])
     return out

@@ -1,5 +1,5 @@
-"""Models of the port: the ``gat`` generator and the ``global``
-discriminator."""
+"""Models of the port: the generator of the ``gat``, ``gat-mh`` and
+``gcn-pool`` models and the ``global`` discriminator."""
 
 from grouptraj_torch.models.discriminator import (  # noqa: F401
     TrajectoryDiscriminator,

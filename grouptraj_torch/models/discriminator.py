@@ -17,7 +17,7 @@ from torch import nn
 
 from grouptraj_torch.config import ModelConfig
 from grouptraj_torch.models.generator import (
-    _check_supported, _encode, _Encoder, _lin, _PoolHiddenNet,
+    _check_supported, _encode, _Encoder, _mlp, _mlp_tree, _PoolHiddenNet,
 )
 from grouptraj_torch.ops.linear import mlp_forward
 from grouptraj_torch.ops.pooling import pool_hidden_net
@@ -34,18 +34,13 @@ class TrajectoryDiscriminator(nn.Module):
         self.cfg = cfg
         h = cfg.encoder_h_dim_d
         self.encoder = _Encoder(cfg.embedding_dim, h)
-        # make_mlp layout: Linear, ReLU, Linear, ReLU (keys .0 and .2)
-        self.real_classifier = nn.Sequential(
-            nn.Linear(h, cfg.mlp_dim), nn.ReLU(),
-            nn.Linear(cfg.mlp_dim, 1), nn.ReLU())
+        self.real_classifier = _mlp([h, cfg.mlp_dim, 1])
         self.pool_net = _PoolHiddenNet(cfg.embedding_dim, h, h)
 
     def tree(self) -> dict:
         """The parameters as the JAX package's tree (views, no copies)."""
         return {"encoder": self.encoder.tree(),
-                "real_classifier": {"layers": [
-                    {"linear": _lin(self.real_classifier[0])},
-                    {"linear": _lin(self.real_classifier[2])}]},
+                "real_classifier": _mlp_tree(self.real_classifier),
                 "pool_net": self.pool_net.tree()}
 
     def forward(self, traj: torch.Tensor, traj_rel: torch.Tensor,

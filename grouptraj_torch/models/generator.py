@@ -16,10 +16,12 @@ Every function is differentiable (serving wraps its calls in
 route of ``ops/lstm.py``: ``'scan'`` (default), ``'fused'``, the
 whole-loop kernels for the encoder and the folded decoder, or ``'pallas'``,
 the projection-in-kernel LSTM for the encoder only (the decoder stays on
-the scan route's folded recurrence, as in the JAX package). The ``gat``
-preset is covered: pool_net pooling, the GAT graph module, no per-step
-re-pooling.
-The other presets raise.
+the scan route's folded recurrence, as in the JAX package). Covered:
+pool_net or gcn pooling; the ``gat`` or ``gat-mh`` graph module (the latter
+followed by ``mlp_decoder_context``), or none with ``mlp_decoder_context``
+after gcn pooling (the ``gcn-pool`` preset); no per-step re-pooling. So
+every zoo checkpoint builds. The other presets (``gcn``, ``sgan``,
+``sgan-p``), ``pool_every_timestep`` and batch_norm raise.
 """
 
 from __future__ import annotations
@@ -31,9 +33,12 @@ import torch
 from torch import nn
 
 from grouptraj_torch.config import ModelConfig
-from grouptraj_torch.models.modules import GATEncoder, gat_encoder
+from grouptraj_torch.models.modules import (
+    GATEncoder, GATEncoderMH, GCNPooling, gat_encoder, gat_encoder_mh,
+    gcn_pooling,
+)
 from grouptraj_torch.ops.cuda_lstm import decoder_recurrence_fused
-from grouptraj_torch.ops.linear import linear
+from grouptraj_torch.ops.linear import linear, mlp_forward
 from grouptraj_torch.ops.lstm import (
     decoder_first_step, decoder_proj_recurrence, encoder_recurrence,
     lstm_scan,
@@ -89,29 +94,39 @@ class _Decoder(nn.Module):
                 "hidden2pos": _lin(self.hidden2pos)}
 
 
+def _mlp(dims) -> nn.Sequential:
+    """make_mlp layout: Linear, ReLU pairs (Linear keys .0, .2, ...)."""
+    layers = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        layers += [nn.Linear(d_in, d_out), nn.ReLU()]
+    return nn.Sequential(*layers)
+
+
+def _mlp_tree(seq: nn.Sequential) -> dict:
+    return {"layers": [{"linear": _lin(m)} for m in seq
+                       if isinstance(m, nn.Linear)]}
+
+
 class _PoolHiddenNet(nn.Module):
     def __init__(self, embedding_dim: int, h_dim: int, bottleneck_dim: int):
         super().__init__()
         self.spatial_embedding = nn.Linear(2, embedding_dim)
-        # make_mlp layout: Linear, ReLU, Linear, ReLU (keys .0 and .2)
-        self.mlp_pre_pool = nn.Sequential(
-            nn.Linear(embedding_dim + h_dim, 512), nn.ReLU(),
-            nn.Linear(512, bottleneck_dim), nn.ReLU())
+        self.mlp_pre_pool = _mlp([embedding_dim + h_dim, 512, bottleneck_dim])
 
     def tree(self) -> dict:
         return {"spatial_embedding": _lin(self.spatial_embedding),
-                "mlp_pre_pool": {"layers": [
-                    {"linear": _lin(self.mlp_pre_pool[0])},
-                    {"linear": _lin(self.mlp_pre_pool[2])}]}}
+                "mlp_pre_pool": _mlp_tree(self.mlp_pre_pool)}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    gcn_pool = (cfg.pooling_type == "gcn" and cfg.graph_module == "none"
+                and cfg.mlp_decoder_context)
     later = [
         (cfg.pool_every_timestep, "pool_every_timestep (per-step pooling)"),
-        (cfg.pooling_type == "gcn", "pooling_type='gcn' (gcn-pool preset)"),
         (cfg.pooling_type in (None, "none"), "pooling_type='none' (sgan)"),
-        (cfg.graph_module != "gat",
-         f"graph_module={cfg.graph_module!r} (gcn, gat-mh, sgan-p presets)"),
+        (cfg.graph_module not in ("gat", "gat-mh") and not gcn_pool,
+         f"graph_module={cfg.graph_module!r} with pooling_type="
+         f"{cfg.pooling_type!r} (gcn, sgan-p presets)"),
         (cfg.batch_norm or cfg.activation != "relu",
          "batch_norm or a non-relu activation"),
     ]
@@ -119,8 +134,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         if flag:
             raise NotImplementedError(
                 f"{what} is not ported yet: it comes with the slice for "
-                "the other presets and paths (ROADMAP.md queue 1); this "
-                "slice serves the 'gat' preset")
+                "the other presets and paths (ROADMAP.md queue 1); the "
+                "port covers the 'gat', 'gat-mh' and 'gcn-pool' models")
 
 
 class TrajectoryGenerator(nn.Module):
@@ -130,32 +145,63 @@ class TrajectoryGenerator(nn.Module):
         self.cfg = cfg
         self.encoder = _Encoder(cfg.embedding_dim, cfg.encoder_h_dim_g)
         self.decoder = _Decoder(cfg.embedding_dim, cfg.decoder_h_dim_g)
-        self.pool_net = _PoolHiddenNet(cfg.embedding_dim, cfg.encoder_h_dim_g,
-                                       cfg.bottleneck_dim)
-        self.gatencoder = GATEncoder(cfg.context_dim, cfg.hidden_units,
-                                     cfg.graph_out_dim,
-                                     cfg.decoder_context_dim, cfg.n_heads)
+        if cfg.pooling_type == "gcn":
+            self.pool_net = GCNPooling(cfg.embedding_dim, cfg.encoder_h_dim_g,
+                                       cfg.gcn_hidden_dim, cfg.bottleneck_dim,
+                                       cfg.gcn_layers)
+        else:
+            self.pool_net = _PoolHiddenNet(cfg.embedding_dim,
+                                           cfg.encoder_h_dim_g,
+                                           cfg.bottleneck_dim)
+        if cfg.graph_module == "gat":
+            self.gatencoder = GATEncoder(cfg.context_dim, cfg.hidden_units,
+                                         cfg.graph_out_dim,
+                                         cfg.decoder_context_dim, cfg.n_heads)
+        elif cfg.graph_module == "gat-mh":
+            self.gatencoder = GATEncoderMH(cfg.mh_n_units, cfg.mh_n_heads)
+            self.mlp_decoder_context = _mlp(
+                [cfg.mh_n_units[-1], cfg.mlp_dim, cfg.decoder_context_dim])
+        else:                                   # gcn-pool: the context MLP
+            self.mlp_decoder_context = _mlp(
+                [cfg.context_dim, cfg.mlp_dim, cfg.decoder_context_dim])
 
     def tree(self) -> dict:
         """The parameters as the JAX package's tree (views, no copies)."""
-        return {"encoder": self.encoder.tree(),
-                "decoder": self.decoder.tree(),
-                "pool_net": self.pool_net.tree(),
-                "gatencoder": self.gatencoder.tree()}
+        p = {"encoder": self.encoder.tree(),
+             "decoder": self.decoder.tree(),
+             "pool_net": self.pool_net.tree()}
+        if hasattr(self, "gatencoder"):
+            p["gatencoder"] = self.gatencoder.tree()
+        if hasattr(self, "mlp_decoder_context"):
+            p["mlp_decoder_context"] = _mlp_tree(self.mlp_decoder_context)
+        return p
 
     def generator_context(self, obs: torch.Tensor, obs_rel: torch.Tensor,
                           group_end: torch.Tensor, valid: torch.Tensor,
                           impl: str = "scan") -> torch.Tensor:
-        """Encoder → pooling → group GAT -> noise_input [S, N, decoder_h −
-        noise]; computed once and shared by all best-of-k samples. obs and
-        obs_rel are [S, N, To, 2], group_end and valid [S, N]."""
+        """Encoder → pooling → graph module -> noise_input [S, N,
+        decoder_h − noise]; computed once and shared by all best-of-k
+        samples. obs and obs_rel are [S, N, To, 2], group_end and valid
+        [S, N]."""
         cfg, p = self.cfg, self.tree()
         final_h = _encode(p["encoder"], obs_rel, impl)        # [S, N, He]
-        pool_h = pool_hidden_net(p["pool_net"], final_h, obs[:, :, -1, :],
-                                 valid, cfg.activation, cfg.batch_norm,
-                                 impl=cfg.pool_impl)
+        if cfg.pooling_type == "gcn":
+            pool_h = gcn_pooling(p["pool_net"], final_h, obs_rel[:, :, -1, :],
+                                 group_end, valid)
+        else:
+            pool_h = pool_hidden_net(p["pool_net"], final_h, obs[:, :, -1, :],
+                                     valid, cfg.activation, cfg.batch_norm,
+                                     impl=cfg.pool_impl)
         ctx = torch.cat([final_h, pool_h], dim=-1)            # [S, N, He+B]
-        return gat_encoder(p["gatencoder"], ctx, group_end, valid, cfg.alpha)
+        if cfg.graph_module == "gat":
+            return gat_encoder(p["gatencoder"], ctx, group_end, valid,
+                               cfg.alpha)
+        if cfg.graph_module == "gat-mh":
+            ctx = gat_encoder_mh(p["gatencoder"], ctx, group_end, valid,
+                                 cfg.alpha, cfg.mh_adj, cfg.mh_concat,
+                                 cfg.mh_norm)
+        return mlp_forward(p["mlp_decoder_context"], ctx, cfg.activation,
+                           cfg.batch_norm, cfg.dropout, mask=valid)
 
     def generator_sample(self, noise_input: torch.Tensor,
                          obs_rel: torch.Tensor, valid: torch.Tensor,

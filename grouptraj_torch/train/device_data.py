@@ -8,8 +8,9 @@ all-zero "null scene" at index ``num_seq`` lets partial batches pad with
 fully-masked scenes without host logic.
 
 This module holds what the training step needs: :func:`gather_batch` and
-the synthetic dataset the step is driven on where no dataset is present.
-Bucketing and the index streams arrive with the training loop.
+the synthetic dataset the step is driven on where no dataset is present;
+and :func:`make_buckets`, the scene-size buckets of the bucketed
+evaluation. The index streams arrive with the training loop.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from grouptraj_torch.utils import resolve_device
+from grouptraj_torch.utils import resolve_device, round_up
 
 
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -64,3 +65,38 @@ def synthetic_device_data(num_seq: int, N: int, obs_len: int = 8,
         "non_linear": non_linear, "valid": valid,
     }
     return {k: torch.from_numpy(pad1(v)).to(dev) for k, v in arrays.items()}
+
+
+def make_buckets(dset, n_buckets: int, batch_size: int):
+    """Partition a dataset's window indices into at most ``n_buckets`` by
+    pedestrian count -> ``[(width, indices), ...]`` sorted by width.
+    Widths are the count quantiles rounded up to 8 (the largest scene's
+    among them); a bucket with fewer scenes than one batch merges into the
+    next wider one, so every batch pads only to its bucket's width."""
+    counts = np.array([w.num_peds for w in dset.windows])
+    top = max(8, round_up(int(counts.max()), 8))
+    if n_buckets <= 1:
+        return [(top, np.arange(len(counts)))]
+    qs = np.quantile(counts, [(i + 1) / n_buckets
+                              for i in range(n_buckets - 1)])
+    widths = sorted({max(8, round_up(int(q), 8)) for q in qs} | {top})
+    buckets = []
+    prev = 0
+    carry = np.array([], dtype=np.int64)
+    for w in widths:
+        idx = np.nonzero((counts > prev) & (counts <= w))[0]
+        idx = np.concatenate([carry, idx])
+        prev = w
+        if len(idx) < batch_size and w != widths[-1]:
+            carry = idx                      # too small: merge upward
+            continue
+        carry = np.array([], dtype=np.int64)
+        if len(idx):
+            buckets.append((w, idx))
+    if len(carry):
+        if buckets:
+            w, idx = buckets[-1]
+            buckets[-1] = (w, np.concatenate([idx, carry]))
+        else:
+            buckets.append((widths[-1], carry))
+    return buckets

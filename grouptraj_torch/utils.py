@@ -2,9 +2,44 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+
+
+def int_tuple(s: str) -> tuple:
+    """argparse type: '8' or '8,16' -> (8,) / (8, 16)."""
+    return tuple(int(i) for i in s.split(","))
+
+
+def bool_flag(s: str) -> bool:
+    """argparse type accepting '0'/'1'."""
+    if s == "1":
+        return True
+    if s == "0":
+        return False
+    raise ValueError('Invalid value "%s" for bool flag (should be 0 or 1)' % s)
+
+
+def get_dset_path(dset_name: str, dset_type: str) -> str:
+    """Resolve a dataset split directory ``<root>/<name>/<split>``. The
+    roots, in order: ``GROUPTRAJ_DATA_DIR``, ``<repo>/datasets_group`` and
+    the reference's read-only dataset mount, the JAX package's candidates.
+    When none holds the split, the path under the first root is returned,
+    so the error that follows names it."""
+    candidates = []
+    env = os.environ.get("GROUPTRAJ_DATA_DIR")
+    if env:
+        candidates.append(env)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    candidates.append(os.path.join(here, "datasets_group"))
+    candidates.append("/root/reference/datasets_group")
+    for root in candidates:
+        path = os.path.join(root, dset_name, dset_type)
+        if os.path.isdir(path):
+            return path
+    return os.path.join(candidates[0], dset_name, dset_type)
 
 
 def relative_to_abs(rel_traj: torch.Tensor, start_pos: torch.Tensor

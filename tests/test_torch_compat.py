@@ -5,7 +5,8 @@ package, and the port's independence from it.
   for key (exact: both only transpose and copy);
 - every zoo checkpoint loads through the port's own unpickler (no optax,
   no JAX) and resolves to the same config as in grouptraj;
-- the ``gat`` files build a Predictor, the others raise;
+- every file (``gat``, ``gat-mh``, ``gcn-pool``) builds a Predictor with
+  the checkpoint's weights that predicts finite positions;
 - a JAX ``TrainState``'s generator and discriminator trees round-trip
   through ``params_from_jax`` into the port's modules and back out of
   their ``tree()`` views;
@@ -114,10 +115,6 @@ def test_zoo_loads_and_configs_match():
 
 @pytest.mark.parametrize("path", ZOO, ids=_name)
 def test_zoo_predictor(path):
-    if _name(path) not in GAT_ZOO:
-        with pytest.raises(NotImplementedError):
-            Predictor.from_checkpoint(path, device="cpu")
-        return
     p = Predictor.from_checkpoint(path, num_samples=2, param_dtype=None,
                                   device="cpu")
     # the loaded weights are the checkpoint's, dead gcn_module keys aside
@@ -132,6 +129,16 @@ def test_zoo_predictor(path):
     assert out.shape == (2, 3, p.cfg.pred_len, 2) and np.isfinite(out).all()
 
 
+# modules of the data, eval and graph slice the walk must import
+NEW_MODULES = ("grouptraj_torch.data.reader", "grouptraj_torch.data._native",
+               "grouptraj_torch.data.dataset", "grouptraj_torch.data.batching",
+               "grouptraj_torch.data.loader", "grouptraj_torch.data.synthetic",
+               "grouptraj_torch.eval.evaluate",
+               "grouptraj_torch.eval.evaluate_model",
+               "grouptraj_torch.ops.gcn", "grouptraj_torch.ops.gat",
+               "grouptraj_torch.models.modules")
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys, grouptraj_torch\n"
@@ -140,8 +147,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules"
         f" if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        f"missing = [m for m in {NEW_MODULES!r} if m not in sys.modules]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -166,7 +174,8 @@ def test_no_source_imports_jax():
             "grouptraj_torch/train/steps.py",
             "grouptraj_torch/train/device_data.py",
             "grouptraj_torch/ops/cuda_pool.py",
-            "grouptraj_torch/ops/lstm.py"} <= seen
+            "grouptraj_torch/ops/lstm.py"} | {
+                m.replace(".", "/") + ".py" for m in NEW_MODULES} <= seen
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in FORBIDDEN, (path, mod)

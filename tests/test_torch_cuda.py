@@ -8,7 +8,9 @@ on misaligned views, and a training iteration with ``lstm_impl='fused'``
 against ``'scan'``; K5 (csrc/lstm_proj_fwd.cu) and K6 (csrc/lstm_proj_bwd.cu)
 against their plain versions, two K5 and two K6 calls that give equal bits,
 K5 on misaligned views, and a training iteration with
-``lstm_impl='pallas'`` against ``'scan'``. Marked ``cuda``; each test skips
+``lstm_impl='pallas'`` against ``'scan'``; Bo20 evaluation of a gat, a
+gat-mh and a gcn-pool zoo file on the three routes against the port on
+the CPU, with the kernels' launches. Marked ``cuda``; each test skips
 without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
@@ -503,3 +505,45 @@ def test_pallas_training_iteration_matches_scan(cuda):
     for k, v in out.items():
         assert torch.isfinite(v).all()
         assert torch.allclose(v, ref[k], rtol=1e-4, atol=1e-6), k
+
+
+@pytest.mark.parametrize("name", ["zara1_12", "univ_12", "zara1_12_gcnpool"])
+def test_zoo_eval_on_card_matches_cpu(cuda, name, tmp_path):
+    """evaluate_bucketed on a small synthetic split (natively windowed)
+    with the same injected noises: each route on the card within 1e-4
+    relative of the port on the CPU; K1 launched for the pool_net models
+    only, K3 on 'fused', K5 on 'pallas'."""
+    from grouptraj_torch.data import TrajectoryDataset
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.eval import evaluate_bucketed
+    from grouptraj_torch.eval.evaluate_model import get_generator
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    from grouptraj_torch.ops.cuda_pool import pool_core_fwd
+    from grouptraj_torch.train.checkpoint import load_checkpoint
+
+    write_scene_files(str(tmp_path), n_files=2, frames=80, max_peds=20,
+                      seed=1)
+    dset = TrajectoryDataset(str(tmp_path), use_native=True)
+    path = f"models/grouptraj/{name}_with_model.pt"
+    g = torch.Generator().manual_seed(0)
+    table = {}
+
+    def noises(i, S, N):
+        if i not in table:
+            table[i] = torch.randn(20, S, N, 8, generator=g)
+        return table[i]
+
+    ref = evaluate_bucketed(get_generator(load_checkpoint(path))[1], dset,
+                            20, 16, noises=noises, device="cpu")
+    model = get_generator(load_checkpoint(path))[1]
+    for impl, kernel in (("scan", None), ("fused", lstm_fused_fwd),
+                         ("pallas", lstm_proj_fwd)):
+        k1, k = pool_core_fwd.launches, kernel and kernel.launches
+        got = evaluate_bucketed(
+            model, dset, 20, 16, noises=lambda i, S, N: noises(i, S, N).to(
+                cuda), impl=impl, device=cuda)
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0,
+                                   err_msg=impl)
+        assert (pool_core_fwd.launches > k1) == (name != "zara1_12_gcnpool")
+        assert kernel is None or kernel.launches > k
