@@ -76,7 +76,19 @@ Phases, each of which fails the run on any error:
    iterations a run) with the launch counts of each run, iterations per
    second and ms per d-step and g-step; then torch.profiler over three
    iterations of each route (tables in chiprun_out/profile_train.txt,
-   profile_train_fused.txt and profile_train_pallas.txt).
+   profile_train_fused.txt and profile_train_pallas.txt);
+8. loop: the training loop, ``train()``, of the gat preset at full width
+   (batch 64, best_k=20, 3 scene-size buckets, dispatches of 20
+   iterations, print every 20, checkpoint every 40, seed 6) on a
+   synthetic ETH/UCY-format split (three train files, ~1,600 windows; one
+   shorter val file): 80 iterations on 'fused' (K1-K4), resumed from its
+   file to 100, and 40 on 'pallas' (K1, K2, K5, K6), each with its launch
+   counts (at least the per-iteration counts times the iterations), finite
+   losses, norms and metrics and both checkpoint files; the file reloads
+   into a state whose Adam moments and steps equal the run's bit for bit;
+   the saved state's val sweep on the card against the CPU with injected
+   draws (1e-4 relative); evaluate_bucketed of g_best_state on the card;
+   it/s of each run, ms per sweep event and ms per checkpoint save.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1633,6 +1645,224 @@ def train_phase():
     return {impl: launches[(impl, 64)] for impl in TRAIN_ITERS}
 
 
+# ----------------------------------------------------------------- loop
+
+# train() runs of the loop phase: route -> iterations (the fused run is
+# resumed from its file to LOOP_RESUME)
+LOOP_ITERS = {"fused": 80, "pallas": 40}
+LOOP_RESUME = 100
+LOOP_SEED = 6                # its discriminator is alive (the train phase)
+LOOP_RTOL = 1e-4             # val sweep metrics, card vs CPU
+# launches per training iteration on each route, at least
+LOOP_PER_ITER = {"fused": {"pool_core_fwd": 4, "pool_core_bwd": 3,
+                           "lstm_fused_fwd": 7, "lstm_fused_bwd": 4},
+                 "pallas": {"pool_core_fwd": 4, "pool_core_bwd": 3,
+                            "lstm_proj_fwd": 4, "lstm_proj_bwd": 3}}
+
+
+def _adam_equal(a, b):
+    """Two TrainStates' Adam moments and steps are equal bit for bit."""
+    import torch
+    for opt_a, mod_a, opt_b, mod_b in ((a.g_opt, a.g, b.g_opt, b.g),
+                                       (a.d_opt, a.d, b.d_opt, b.d)):
+        pb = dict(mod_b.named_parameters())
+        for name, p in mod_a.named_parameters():
+            sa, sb = opt_a.state[p], opt_b.state[pb[name]]
+            if set(sa) != {"step", "exp_avg", "exp_avg_sq"} or set(sb) != \
+                    set(sa) or not all(torch.equal(sa[k], sb[k])
+                                       for k in sa):
+                return False
+    return True
+
+
+def loop_phase(smi):
+    """The training loop through train() on a synthetic ETH/UCY-format
+    split: the gat preset at full width on 'fused' (K1-K4) for
+    LOOP_ITERS iterations, then resumed from its file to LOOP_RESUME, and
+    on 'pallas' (K1, K2, K5, K6), every count at 0 just before each run
+    and read just after; the files, the reloaded Adam state against the
+    run's own, the val sweep of the saved state on the card against the
+    CPU with injected draws, and evaluate_bucketed of g_best_state. Prints
+    it/s of each run, ms per sweep event and ms per checkpoint save."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data import TrajectoryDataset
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.eval import evaluate_bucketed
+    from grouptraj_torch.eval.evaluate_model import get_generator
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train import loop as LOOP
+    from grouptraj_torch.train.device_data import device_dataset
+    from grouptraj_torch.train.steps import (
+        read_sums, summarize_check_accuracy,
+    )
+
+    t_phase = time.perf_counter()
+    timed = {"dispatch": [], "sweep": [], "save": []}
+
+    def timing(kind, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timed[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def timed_sweep_factory(*args, **kw):
+        return timing("sweep", make_sweep(*args, **kw))
+
+    make_sweep = LOOP.make_check_accuracy_sweep
+    tmp = tempfile.mkdtemp(prefix="grouptraj_loop_")
+    saved_env = os.environ.get("GROUPTRAJ_DATA_DIR")
+    os.environ["GROUPTRAJ_DATA_DIR"] = tmp
+    try:
+        write_scene_files(os.path.join(tmp, "synth", "train"), n_files=3,
+                          frames=560, max_peds=57, seed=0)
+        # one shorter val file: its sweep also runs on the CPU below
+        write_scene_files(os.path.join(tmp, "synth", "val"), n_files=1,
+                          frames=200, max_peds=57, seed=1)
+        cfg = ModelConfig()
+        base = dict(dataset_name="synth", batch_size=64, best_k=20,
+                    n_buckets=3, steps_per_dispatch=20, print_every=20,
+                    checkpoint_every=40, num_epochs=0, seed=LOOP_SEED,
+                    output_dir=os.path.join(tmp, "out"))
+        runs, results = {}, {}
+        for name, impl, iters in (
+                ("fused", "fused", LOOP_ITERS["fused"]),
+                ("fused_resumed", "fused", LOOP_RESUME),
+                ("pallas", "pallas", LOOP_ITERS["pallas"])):
+            tcfg = TrainConfig(**base, num_iterations=iters, lstm_impl=impl,
+                               checkpoint_name=impl)
+            for k in timed:
+                timed[k].clear()
+            with _swapped(LOOP, make_check_accuracy_sweep=timed_sweep_factory,
+                          train_iterations=timing("dispatch",
+                                                  LOOP.train_iterations)), \
+                    _swapped(CK, save_checkpoint=timing(
+                        "save", CK.save_checkpoint)):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                ckpt, state = LOOP.train(cfg, tcfg, device="cuda",
+                                         return_state=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = all_counts()
+            ran = iters - (LOOP_ITERS["fused"] if name == "fused_resumed"
+                           else 0)
+            runs[name] = counts
+            results[name] = (tcfg, ckpt, state)
+            want = {k: v * ran for k, v in LOOP_PER_ITER[impl].items()}
+            print(f"loop {name}: train() {ran} iterations on {impl}, "
+                  f"launches {json.dumps(counts)}")
+            short = {k: counts[k] for k in want if counts[k] < want[k]}
+            if short or not all(counts[k] for k in want):
+                fail(f"loop {name}: launches {short} below {want}")
+            hist = ([v for vals in ckpt["G_losses"].values() for v in vals]
+                    + [v for vals in ckpt["D_losses"].values() for v in vals]
+                    + ckpt["norm_g"] + ckpt["norm_d"]
+                    + [v for vals in ckpt["metrics_val"].values()
+                       for v in vals])
+            if not hist or not all(math.isfinite(v) for v in hist):
+                fail(f"loop {name}: a loss, norm or metric is not finite")
+            if max(ckpt["norm_d"]) <= 0:
+                fail(f"loop {name}: the discriminator had no gradient")
+            for suffix in ("_with_model.pt", "_no_model.pt"):
+                if not os.path.isfile(os.path.join(
+                        tcfg.output_dir, tcfg.checkpoint_name + suffix)):
+                    fail(f"loop {name}: {tcfg.checkpoint_name}{suffix} "
+                         f"was not written")
+            n_events = len(timed["sweep"]) // 2
+            disp = sum(timed["dispatch"])
+            print(f"loop {name}: {ran / wall:.2f} it/s over the run "
+                  f"({wall:.2f} s wall), {ran / disp:.2f} it/s in its "
+                  f"{len(timed['dispatch'])} dispatches; "
+                  f"{1e3 * sum(timed['sweep']) / max(n_events, 1):.1f} ms "
+                  f"per sweep event ({n_events} events, val + train); "
+                  f"{1e3 * statistics.mean(timed['save']):.1f} ms per "
+                  f"checkpoint save ({len(timed['save'])} saves); "
+                  f"last val ade {ckpt['metrics_val']['ade'][-1]:.4f}; "
+                  f"{smi}")
+
+        # the resume and the reloaded Adam state
+        tcfg, ckpt, state = results["fused_resumed"]
+        if ckpt["counters"]["t"] != LOOP_RESUME or \
+                LOOP_ITERS["fused"] not in ckpt["restore_ts"]:
+            fail(f"loop: the resumed run ended at {ckpt['counters']} with "
+                 f"restore_ts {ckpt['restore_ts']}")
+        path = os.path.join(tcfg.output_dir, "fused_with_model.pt")
+        loaded = CK.load_checkpoint(path)
+        reloaded = CK.state_from_checkpoint(loaded, cfg, tcfg, "cuda")
+        if not _adam_equal(state, reloaded):
+            fail("loop: the reloaded Adam state differs from the run's")
+        small = CK.load_checkpoint(os.path.join(tcfg.output_dir,
+                                                "fused_no_model.pt"))
+        if set(CK.KEY_BLACKLIST) & set(small):
+            fail("loop: the small checkpoint holds model states")
+        print(f"loop: resumed to t={ckpt['counters']['t']} (restore_ts "
+              f"{ckpt['restore_ts']}); fused_with_model.pt reloads with Adam "
+              f"exp_avg/exp_avg_sq/step equal bit for bit (step "
+              f"{int(next(iter(reloaded.g_opt.state.values()))['step'])})")
+
+        # the val sweep of the saved state, card against CPU, same draws
+        _, _, val_loader = LOOP.build_loaders(cfg, tcfg)
+        dense = val_loader.dense
+        idx = LOOP._sweep_indices(dense.num_seq, tcfg.batch_size)
+        gen = torch.Generator().manual_seed(2)
+        draws = [(torch.randn((tcfg.batch_size, dense.n_max, 8),
+                              generator=gen), 0.7 + 0.5 * i / len(idx))
+                 for i in range(len(idx))]
+        metrics = {}
+        t_cpu = 0.0
+        for dev in ("cuda", "cpu"):
+            st = CK.state_from_checkpoint(loaded, cfg, tcfg, dev)
+            sweep = make_sweep(cfg, "fused")
+            t0 = time.perf_counter()
+            sums = sweep(st, device_dataset(dense, cfg.obs_len, dev),
+                         torch.from_numpy(idx).to(dev, torch.long),
+                         draws=lambda i, S, N: (draws[i][0].to(dev),
+                                                draws[i][1]))
+            metrics[dev] = summarize_check_accuracy(read_sums(sums),
+                                                    len(idx), cfg.pred_len)
+            t_cpu = time.perf_counter() - t0
+        worst = max(abs(metrics["cuda"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in metrics["cpu"].items())
+        print(f"loop: val sweep of the saved state ({dense.num_seq} "
+              f"windows, {len(idx)} batches, fused) card vs CPU: worst "
+              f"relative difference {worst:.2e} (limit {LOOP_RTOL}); ade "
+              f"{metrics['cuda']['ade']:.6f} / {metrics['cpu']['ade']:.6f}; "
+              f"the CPU sweep took {t_cpu:.1f} s")
+        if not worst <= LOOP_RTOL:
+            fail(f"loop: val sweep card vs CPU {metrics}")
+
+        # evaluate_bucketed of the best state, on the card
+        _, model = get_generator(loaded, use_best=True)
+        dset = TrajectoryDataset(os.path.join(tmp, "synth", "val"))
+        ade, fde = evaluate_bucketed(model, dset, 20, batch_size=64,
+                                     n_buckets=3, seed=0, impl="fused",
+                                     device="cuda")
+        if not (math.isfinite(ade) and math.isfinite(fde)):
+            fail(f"loop: evaluate_bucketed of g_best_state gave {ade}, {fde}")
+        print(f"loop: evaluate_bucketed of g_best_state (t="
+              f"{loaded['best_t']}) on the card: ADE {ade:.4f} FDE "
+              f"{fde:.4f}; the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+        if saved_env is None:
+            os.environ.pop("GROUPTRAJ_DATA_DIR", None)
+        else:
+            os.environ["GROUPTRAJ_DATA_DIR"] = saved_env
+    return {"fused": {k: runs["fused"][k] + runs["fused_resumed"][k]
+                      for k in runs["fused"]}, "pallas": runs["pallas"]}
+
+
 @contextlib.contextmanager
 def _swapped(module, **fns):
     """Within the block ``module``'s attributes are ``fns``."""
@@ -1732,13 +1962,16 @@ def main():
     del p16, p32, route_call
     eval_launches, _ = eval_phase(batches)
     train_launches = train_phase()
+    loop_launches = loop_phase(smi.splitlines()[0])
 
     # launches: every main path, each driven with the counts at 0 just
     # before it and read just after it: serving through the Predictor (scan
     # route), serving on the fused and on the pallas route, and
     # train_iterations at S=64, N=64 on the three routes (TRAIN_ITERS
-    # iterations each). No single PyTorch call computes K1-K4's functions,
-    # so their library_ms is null; the nearest call for K3/K4,
+    # iterations each), eval on the three routes, and train() on the fused
+    # and pallas routes (LOOP_ITERS, the fused run with its resume). No
+    # single PyTorch call computes K1-K4's functions, so their library_ms
+    # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
     # "nearest_library". nn.LSTM computes exactly K5's function (and its
     # backward K6's): K5's library_ms is its forward with grad at the
@@ -1751,7 +1984,9 @@ def main():
              "train_pallas": train_launches["pallas"],
              "eval": eval_launches["scan"],
              "eval_fused": eval_launches["fused"],
-             "eval_pallas": eval_launches["pallas"]}
+             "eval_pallas": eval_launches["pallas"],
+             "loop_fused": loop_launches["fused"],
+             "loop_pallas": loop_launches["pallas"]}
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               **more):

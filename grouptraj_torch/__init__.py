@@ -5,8 +5,8 @@ and numpy, never jax, optax or grouptraj; every TPU kernel on a ported path
 is a hand-written CUDA kernel under ``csrc/`` with a plain PyTorch twin in
 the same module. Ported: the data layer (``data/``), Bo20 evaluation
 (``eval/``) and serving for every zoo model (``gat``, ``gat-mh``,
-``gcn-pool``); one training iteration (``train/steps.py``: d-step +
-g-step) of the ``gat`` preset:
+``gcn-pool``); training (``train/``: the d-step + g-step, the loop with
+its metric sweeps, checkpoints in the JAX package's schema, a CLI):
 
     from grouptraj_torch.serve import Predictor
     p = Predictor.from_checkpoint("models/grouptraj/zara1_12_with_model.pt")
@@ -14,9 +14,8 @@ g-step) of the ``gat`` preset:
 
     python -m grouptraj_torch.eval.evaluate_model --model_path CKPT
 
-    from grouptraj_torch.train.steps import init_train_state, train_iterations
-    state = init_train_state(cfg, tcfg)
-    losses = train_iterations(state, data, idx, cfg, tcfg)
+    from grouptraj_torch.train import train
+    ckpt = train(cfg, tcfg)        # or: python -m grouptraj_torch.train.cli
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

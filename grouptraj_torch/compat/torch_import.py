@@ -7,16 +7,30 @@ layouts (``encoder.encoder.weight_ih_l0``, ``pool_net.mlp_pre_pool.2.weight``,
 bridge from a JAX generator parameter tree (``[in, out]`` weights, gate
 order i,f,g,o) to that state dict — the port's own copy of the
 ``export_state_dicts`` mapping for the ``gat``, ``gat-mh`` and ``gcn-pool``
-generators — and takes the discriminator's tree as well.
+generators — and takes the discriminator's tree as well;
+:func:`params_to_jax` is its inverse.
+
+The optimizer state crosses too. grouptraj checkpoints hold optax's state
+of ``chain(clip_by_global_norm, adam)``: ``(EmptyState(),
+(ScaleByAdamState(count, mu, nu), EmptyState()))`` for the generator (clip
+2.0) and ``((ScaleByAdamState(count, mu, nu), EmptyState()),)`` for the
+discriminator (clip 0: no clip), ``count`` an int32 0-d array and
+``mu``/``nu`` trees shaped like the parameters. :func:`optax_from_adam`
+writes a ``torch.optim.Adam``'s moments in that form (with this module's
+stand-ins for the two optax classes, which ``train/checkpoint.py`` pickles
+under optax's names) and :func:`adam_from_optax` reads them back:
+``step`` is ``count``, ``exp_avg``/``exp_avg_sq`` are ``mu``/``nu``,
+transposed like their weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from grouptraj_torch.config import ModelConfig
 
@@ -121,9 +135,8 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
     the port builds (``gat``, ``gat-mh``, ``gcn-pool``) and the ``global``
     discriminator; other trees raise NotImplementedError. A JAX
     ``TrainState``'s ``g_params``/``d_params`` thus become the port's G and
-    D; optimizer moments are not carried (both sides start Adam from zero)
-    — bridging a non-zero optimizer state waits for the port's checkpoint
-    save."""
+    D; the optimizer's moments, trees of the same shape, cross with
+    :func:`adam_from_optax`."""
     out: Dict[str, np.ndarray] = {}
 
     def lin(prefix, p):
@@ -207,3 +220,172 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
     if "mlp_decoder_context" in tree:
         mlp("mlp_decoder_context", tree["mlp_decoder_context"])
     return out
+
+
+def params_to_jax(state: Mapping, kind: str = "generator") -> dict:
+    """The inverse of :func:`params_from_jax`: a torch-named state dict
+    (tensors or arrays) of the port's generator or discriminator -> the
+    JAX package's parameter tree, as numpy arrays (``[out, in]`` weights
+    transposed to ``[in, out]``). The tree is the one
+    ``grouptraj.compat.import_generator`` / ``import_discriminator`` build
+    from the same names, so an optax state over it matches the JAX
+    package's own."""
+    sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+              else np.asarray(v)) for k, v in state.items()}
+
+    def lin(prefix):
+        return {"w": sd[prefix + ".weight"].T, "b": sd[prefix + ".bias"]}
+
+    def lstm(prefix):
+        return {"w_ih": sd[prefix + ".weight_ih_l0"].T,
+                "w_hh": sd[prefix + ".weight_hh_l0"].T,
+                "b_ih": sd[prefix + ".bias_ih_l0"],
+                "b_hh": sd[prefix + ".bias_hh_l0"]}
+
+    def mlp(prefix):
+        idxs = sorted({int(k[len(prefix) + 1:].split(".")[0])
+                       for k in sd if k.startswith(prefix + ".")})
+        return {"layers": [{"linear": lin(f"{prefix}.{i}")} for i in idxs]}
+
+    def gcn(prefix):
+        ws, i = [], 0
+        while f"{prefix}.W.{i}" in sd:
+            ws.append(sd[f"{prefix}.W.{i}"])
+            i += 1
+        return {"W": ws}
+
+    def pool_net(prefix):
+        if f"{prefix}.gcn_pooling_net_intra.W.0" in sd:
+            return {"spatial_embedding": lin(f"{prefix}.spatial_embedding"),
+                    "gcn_pooling_net_intra":
+                        gcn(f"{prefix}.gcn_pooling_net_intra"),
+                    "gcn_pooling_net_inter":
+                        gcn(f"{prefix}.gcn_pooling_net_inter"),
+                    "out_embedding": lin(f"{prefix}.out_embedding")}
+        return {"spatial_embedding": lin(f"{prefix}.spatial_embedding"),
+                "mlp_pre_pool": mlp(f"{prefix}.mlp_pre_pool")}
+
+    def gat(prefix):
+        heads = sorted({int(k[len(prefix) + 11:].split(".")[0])
+                        for k in sd if k.startswith(prefix + ".attention_")})
+        return {"attentions": [{"W": sd[f"{prefix}.attention_{i}.W"],
+                                "a": sd[f"{prefix}.attention_{i}.a"]}
+                               for i in heads],
+                "out_att": {"W": sd[f"{prefix}.out_att.W"],
+                            "a": sd[f"{prefix}.out_att.a"]}}
+
+    tree = {"encoder": {"spatial_embedding": lin("encoder.spatial_embedding"),
+                        "lstm": lstm("encoder.encoder")}}
+    if kind == "discriminator":
+        tree["real_classifier"] = mlp("real_classifier")
+        tree["pool_net"] = pool_net("pool_net")
+        return tree
+    if kind != "generator":
+        raise ValueError(f"kind must be 'generator' or 'discriminator', "
+                         f"got {kind!r}")
+    tree["decoder"] = {"spatial_embedding": lin("decoder.spatial_embedding"),
+                       "lstm": lstm("decoder.decoder"),
+                       "hidden2pos": lin("decoder.hidden2pos")}
+    tree["pool_net"] = pool_net("pool_net")
+    if "gatencoder.gat_intra.attention_0.W" in sd:
+        tree["gatencoder"] = {
+            "gat_intra": gat("gatencoder.gat_intra"),
+            "gat_inter": gat("gatencoder.gat_inter"),
+            "out_embedding": lin("gatencoder.out_embedding")}
+    elif "gatencoder.gat_net.layer_stack.0.w" in sd:
+        layers, i = [], 0
+        while f"gatencoder.gat_net.layer_stack.{i}.w" in sd:
+            pre = f"gatencoder.gat_net.layer_stack.{i}"
+            layers.append({name: sd[f"{pre}.{name}"]
+                           for name in ("w", "a_src", "a_dst", "bias")})
+            i += 1
+        tree["gatencoder"] = {"gat_net": {"layer_stack": layers}}
+    if "mlp_decoder_context.0.weight" in sd:
+        tree["mlp_decoder_context"] = mlp("mlp_decoder_context")
+    return tree
+
+
+class EmptyState(NamedTuple):
+    """Stand-in for ``optax.EmptyState``."""
+
+
+class ScaleByAdamState(NamedTuple):
+    """Stand-in for ``optax.ScaleByAdamState``."""
+    count: np.ndarray
+    mu: dict
+    nu: dict
+
+
+# where optax defines the classes the stand-ins take the place of
+OPTAX_CLASSES = {EmptyState: ("optax._src.base", "EmptyState"),
+                 ScaleByAdamState: ("optax._src.transform",
+                                    "ScaleByAdamState")}
+
+
+def optax_from_adam(optimizer: torch.optim.Optimizer, module: nn.Module,
+                    kind: str, clip: float) -> tuple:
+    """``optimizer``'s Adam state over ``module``'s parameters -> the
+    state optax's ``chain([clip_by_global_norm(clip),] adam(lr))`` keeps,
+    numpy leaves in the JAX layout. Parameters the optimizer has not
+    stepped yet have zero moments; ``count`` is their common step."""
+    mu, nu, steps = {}, {}, set()
+    for name, p in module.named_parameters():
+        st = optimizer.state.get(p, {})
+        zero = np.zeros(tuple(p.shape), np.float32)
+        mu[name] = (st["exp_avg"].detach().cpu().numpy().copy()
+                    if "exp_avg" in st else zero)
+        nu[name] = (st["exp_avg_sq"].detach().cpu().numpy().copy()
+                    if "exp_avg_sq" in st else zero)
+        steps.add(int(st["step"]) if "step" in st else 0)
+    if len(steps) > 1:
+        raise ValueError(f"the parameters were stepped unequally: {steps}")
+    adam = ScaleByAdamState(np.asarray(steps.pop() if steps else 0, np.int32),
+                            params_to_jax(mu, kind), params_to_jax(nu, kind))
+    if clip and clip > 0:
+        return (EmptyState(), (adam, EmptyState()))
+    return ((adam, EmptyState()),)
+
+
+def _find_adam(opt_state) -> Optional[tuple]:
+    """The ScaleByAdamState inside a chain's nested tuples, or None."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _find_adam(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_from_optax(opt_state, optimizer: torch.optim.Optimizer,
+                    module: nn.Module, kind: str) -> bool:
+    """Load an optax Adam chain's state (a grouptraj or port checkpoint's
+    ``g_optim_state``/``d_optim_state``) into ``optimizer`` over
+    ``module``'s parameters. Returns False, leaving ``optimizer`` as it
+    is, when the state holds no Adam moments or their names or shapes do
+    not match the parameters (grouptraj's ``_opt_compatible``)."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        return False
+    params = dict(module.named_parameters())
+    try:
+        mu = params_from_jax(adam.mu, kind)
+        nu = params_from_jax(adam.nu, kind)
+    except (KeyError, TypeError, NotImplementedError):
+        return False
+    if set(mu) != set(params) or any(
+            tuple(mu[k].shape) != tuple(p.shape)
+            or tuple(nu[k].shape) != tuple(p.shape)
+            for k, p in params.items()):
+        return False
+    count = int(np.asarray(adam.count))
+    for name, p in params.items():
+        optimizer.state[p] = {
+            # torch keeps a non-capturable Adam's step on the CPU
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.ascontiguousarray(mu[name]),
+                                    dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(np.ascontiguousarray(nu[name]),
+                                       dtype=p.dtype, device=p.device)}
+    return True

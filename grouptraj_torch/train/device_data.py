@@ -7,10 +7,12 @@ indices; the batch gather is an ``index_select`` on the device. An extra
 all-zero "null scene" at index ``num_seq`` lets partial batches pad with
 fully-masked scenes without host logic.
 
-This module holds what the training step needs: :func:`gather_batch` and
-the synthetic dataset the step is driven on where no dataset is present;
-and :func:`make_buckets`, the scene-size buckets of the bucketed
-evaluation. The index streams arrive with the training loop.
+:func:`device_dataset` uploads a dense dataset, :func:`gather_batch`
+assembles a batch from it, and :func:`synthetic_device_data` stands in
+where no dataset is present. The training loop's index streams,
+:class:`IndexStream` and the scene-size :class:`BucketScheduler` over
+:func:`make_buckets`, draw with numpy's ``default_rng`` exactly as the JAX
+package's do, so both packages visit the same scenes in the same order.
 """
 
 from __future__ import annotations
@@ -21,6 +23,23 @@ import numpy as np
 import torch
 
 from grouptraj_torch.utils import resolve_device, round_up
+
+
+def device_dataset(dense, obs_len: int,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Upload a DenseDataset to ``device`` (default ``cuda``), with the
+    all-zero null scene appended at index ``num_seq``."""
+    dev = resolve_device(device)
+    pad1 = lambda a: np.concatenate(
+        [a, np.zeros((1,) + a.shape[1:], a.dtype)], axis=0)
+    arrays = {
+        "xy": dense.xy, "rel": dense.rel,
+        "group_end": dense.group[:, :, obs_len - 1],
+        "loss_mask": dense.loss_mask, "non_linear": dense.non_linear,
+        "valid": dense.valid,
+    }
+    return {k: torch.from_numpy(pad1(v)).to(dev) for k, v in arrays.items()}
 
 
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
@@ -100,3 +119,69 @@ def make_buckets(dset, n_buckets: int, batch_size: int):
         else:
             buckets.append((widths[-1], carry))
     return buckets
+
+
+class BucketScheduler:
+    """Deficit scheduler over per-bucket index streams: each dispatch draws
+    ``chunk × steps_per_iter`` batches from ONE bucket (so a dispatch runs
+    at that bucket's pad width), the bucket with the least progress
+    relative to its share of the scenes, so that in the long run every
+    scene is visited at the rate of unbucketed shuffling."""
+
+    def __init__(self, bucket_sizes, batch_size: int, seed: int = 0):
+        self.weights = [max(s, 1) for s in bucket_sizes]
+        self.total = sum(self.weights)
+        self.streams = [iter(IndexStream(s, batch_size, seed=seed + 977 * b))
+                        for b, s in enumerate(bucket_sizes)]
+        self.done = [0] * len(bucket_sizes)
+        # one aggregate "epoch" = the batches one shuffle of every bucket
+        # yields, IndexStream's definition unbucketed
+        self._batches = 0
+        self._batches_per_epoch = sum(
+            -(-max(s, 1) // batch_size) for s in bucket_sizes)
+
+    @property
+    def epoch(self) -> int:
+        """1-based; increments when the aggregate stream starts a new pass
+        over every scene."""
+        return 1 + self._batches // self._batches_per_epoch
+
+    def next_dispatch(self, chunk: int, steps_per_iter: int):
+        """-> (bucket id, ``[chunk, steps_per_iter, batch_size]`` int32
+        scene indices into that bucket's dataset)."""
+        b = min(range(len(self.done)),
+                key=lambda i: self.done[i] / self.weights[i])
+        idx = np.stack([
+            np.stack([next(self.streams[b]) for _ in range(steps_per_iter)])
+            for _ in range(chunk)])
+        self.done[b] += chunk
+        self._batches += chunk * steps_per_iter
+        return b, idx
+
+
+class IndexStream:
+    """Continuous epoch-reshuffled stream of ``[batch_size]`` int32
+    scene-index arrays; a partial tail pads with the null-scene index.
+    ``epoch`` counts the shuffles started."""
+
+    def __init__(self, num_seq: int, batch_size: int, seed: int = 0,
+                 shuffle: bool = True):
+        self.num_seq = num_seq
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self.epoch = 0
+
+    def __iter__(self):
+        while True:
+            order = np.arange(self.num_seq)
+            if self.shuffle:
+                self._rng.shuffle(order)
+            self.epoch += 1
+            for start in range(0, self.num_seq, self.batch_size):
+                chunk = order[start:start + self.batch_size]
+                if len(chunk) < self.batch_size:
+                    pad = np.full(self.batch_size - len(chunk), self.num_seq,
+                                  dtype=np.int64)
+                    chunk = np.concatenate([chunk, pad])
+                yield chunk.astype(np.int32)

@@ -21,13 +21,20 @@
 A step mutates the models and optimizers of its :class:`TrainState` in
 place and returns the losses as device tensors under the JAX package's
 names; nothing inside a step reads a value back to the host.
+
+The metric pass (reference ``train.py:487-568``) is
+:func:`make_check_accuracy_step` — one sample of the generator and the
+discriminator's scores on real and fake, as raw sums — its sweep over a
+device-resident dataset (:func:`make_check_accuracy_sweep`, the sums
+accumulated on the device), :func:`summarize_check_accuracy`, the
+reference's normalisers, and :func:`check_accuracy`, the loader variant.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,6 +52,9 @@ from grouptraj_torch.utils import relative_to_abs, resolve_device
 
 Batch = Dict[str, torch.Tensor]
 Label = Union[float, torch.Tensor, None]
+# a sweep's injected draws: (batch index, S, N) -> (noise [S, N, nd] or
+# None, label-smoothing scalar)
+SweepDraws = Callable[[int, int, int], Tuple[Optional[torch.Tensor], Label]]
 
 
 @dataclasses.dataclass
@@ -351,3 +361,147 @@ def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
                 impl=impl, **kw))
         history.append(losses)
     return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+
+
+def make_check_accuracy_step(cfg: ModelConfig, impl: str = "scan"
+                             ) -> Callable:
+    """Per-batch raw sums of the metric pass (reference
+    ``train.py:487-568``): ``(state, batch, generator=None, noise=None,
+    label=None) -> {name: 0-d device tensor}``. One generator sample (the
+    noise ``[S, N, nd]`` and the U(0.7, 1.2) scalar of the D loss drawn
+    from ``generator`` unless injected), D's scores on fake and real; the
+    caller accumulates the sums and normalises them with
+    :func:`summarize_check_accuracy`."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Batch,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None,
+             label: Label = None) -> Dict[str, torch.Tensor]:
+        b = batch
+        valid = b["valid"]
+        linear = (1.0 - b["non_linear"]) * valid
+        non_linear = b["non_linear"] * valid
+        pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
+        pred_rel_fake = state.g.generator_forward(
+            b["obs"], b["obs_rel"], b["group"], valid, generator, noise,
+            impl)
+        pred_abs_fake = relative_to_abs(pred_rel_fake, b["obs"][:, :, -1, :])
+        tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
+        scores_fake = state.d(tf, tfr, valid, impl)
+        scores_real = state.d(tr, trr, valid, impl)
+        last, gt_last = pred_abs_fake[:, :, -1], b["pred"][:, :, -1]
+        return {
+            "d_loss": L.gan_d_loss(scores_real, scores_fake,
+                                   _label(label, generator, valid.device),
+                                   valid),
+            "g_l2_loss_abs": L.l2_loss(pred_abs_fake, b["pred"],
+                                       pred_loss_mask, "sum"),
+            "g_l2_loss_rel": L.l2_loss(pred_rel_fake, b["pred_rel"],
+                                       pred_loss_mask, "sum"),
+            "disp_error": L.displacement_error(pred_abs_fake, b["pred"],
+                                               valid),
+            "disp_error_l": L.displacement_error(pred_abs_fake, b["pred"],
+                                                 linear),
+            "disp_error_nl": L.displacement_error(pred_abs_fake, b["pred"],
+                                                  non_linear),
+            "f_disp_error": L.final_displacement_error(last, gt_last, valid),
+            "f_disp_error_l": L.final_displacement_error(last, gt_last,
+                                                         linear),
+            "f_disp_error_nl": L.final_displacement_error(last, gt_last,
+                                                          non_linear),
+            "loss_mask_sum": pred_loss_mask.sum(),
+            "total_traj": valid.sum(),
+            "total_traj_l": linear.sum(),
+            "total_traj_nl": non_linear.sum(),
+        }
+
+    return step
+
+
+def make_check_accuracy_sweep(cfg: ModelConfig, impl: str = "scan"
+                              ) -> Callable:
+    """The whole metric pass over a device-resident dataset: ``(state,
+    data, idx, generator=None, draws=None) -> sums``, ``data`` a
+    :func:`device_data.device_dataset` dict and ``idx`` ``[n_batches, S]``
+    scene indices on the device (tails padded with the null scene, which
+    adds exactly zero to every sum). The per-batch sums are added on the
+    device in batch order; the caller reads them back once. ``draws``, when
+    given, is a :data:`SweepDraws` that replaces batch ``i``'s draws."""
+    raw = make_check_accuracy_step(cfg, impl)
+
+    def sweep(state: TrainState, data: Dict[str, torch.Tensor],
+              idx: torch.Tensor, generator: Optional[torch.Generator] = None,
+              draws: Optional[SweepDraws] = None) -> Dict[str, torch.Tensor]:
+        acc = None
+        S, N = idx.shape[1], data["valid"].shape[1]
+        for i, bidx in enumerate(idx):
+            noise, label = draws(i, S, N) if draws is not None else (None,
+                                                                     None)
+            out = raw(state, gather_batch(data, bidx, cfg.obs_len),
+                      generator, noise, label)
+            acc = out if acc is None else {k: acc[k] + v
+                                           for k, v in out.items()}
+        return acc
+
+    return sweep
+
+
+def summarize_check_accuracy(sums: Dict[str, float], n_batches: int,
+                             pred_len: int) -> Dict[str, float]:
+    """Normalise raw metric sums as the reference does: d_loss averaged
+    per batch; ADE = Σ/(total_traj·pred_len), FDE = Σ/total_traj; the
+    linear / non-linear variants 0 for an empty class."""
+    d_loss_mean = sums.pop("d_loss") / max(n_batches, 1)
+    tt, tl, tnl = (sums["total_traj"], sums["total_traj_l"],
+                   sums["total_traj_nl"])
+    return {
+        "d_loss": d_loss_mean,
+        "g_l2_loss_abs": sums["g_l2_loss_abs"] / max(sums["loss_mask_sum"], 1),
+        "g_l2_loss_rel": sums["g_l2_loss_rel"] / max(sums["loss_mask_sum"], 1),
+        "ade": sums["disp_error"] / max(tt * pred_len, 1),
+        "fde": sums["f_disp_error"] / max(tt, 1),
+        "ade_l": sums["disp_error_l"] / (tl * pred_len) if tl else 0,
+        "fde_l": sums["f_disp_error_l"] / tl if tl else 0,
+        "ade_nl": sums["disp_error_nl"] / (tnl * pred_len) if tnl else 0,
+        "fde_nl": sums["f_disp_error_nl"] / tnl if tnl else 0,
+    }
+
+
+def read_sums(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Device sums -> host floats in one read-back."""
+    keys = list(sums)
+    return dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
+
+
+def check_accuracy(args, loader, state: TrainState, step_fn: Callable,
+                   device: Union[str, torch.device, None] = None,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[SweepDraws] = None, limit: bool = False
+                   ) -> Dict[str, float]:
+    """The metric pass over a DenseLoader's batches (``step_fn`` from
+    :func:`make_check_accuracy_step`): the sums accumulate on ``device``
+    (default ``cuda``) and are read back once. With ``limit`` the pass
+    stops after the batch that reaches ``args.num_samples_check`` valid
+    trajectories (counted on the host's copy of the batch)."""
+    dev = resolve_device(device)
+    acc = None
+    n_batches = 0
+    seen_traj = 0.0
+    for batch in loader:
+        b = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+            obs=batch.obs, pred=batch.pred, obs_rel=batch.obs_rel,
+            pred_rel=batch.pred_rel, group=batch.end_group,
+            valid=batch.valid, loss_mask=batch.loss_mask,
+            non_linear=batch.non_linear).items()}
+        S, N = batch.valid.shape
+        noise, label = (draws(n_batches, S, N) if draws is not None
+                        else (None, None))
+        out = step_fn(state, b, generator, noise, label)
+        acc = out if acc is None else {k: acc[k] + v for k, v in out.items()}
+        n_batches += 1
+        seen_traj += float(batch.valid.sum())
+        if limit and seen_traj >= args.num_samples_check:
+            break
+    return summarize_check_accuracy(read_sums(acc), n_batches,
+                                    loader.dense.pred_len)

@@ -10,8 +10,9 @@ against their plain versions, two K5 and two K6 calls that give equal bits,
 K5 on misaligned views, and a training iteration with
 ``lstm_impl='pallas'`` against ``'scan'``; Bo20 evaluation of a gat, a
 gat-mh and a gcn-pool zoo file on the three routes against the port on
-the CPU, with the kernels' launches. Marked ``cuda``; each test skips
-without a CUDA device.
+the CPU, with the kernels' launches; a short ``train()`` on 'fused' whose
+checkpoint reloads with the run's Adam state bit for bit. Marked
+``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -547,3 +548,51 @@ def test_zoo_eval_on_card_matches_cpu(cuda, name, tmp_path):
                                    err_msg=impl)
         assert (pool_core_fwd.launches > k1) == (name != "zara1_12_gcnpool")
         assert kernel is None or kernel.launches > k
+
+
+def test_fused_training_loop_saves_and_reloads_adam(cuda, tmp_path,
+                                                    monkeypatch):
+    """A 6-iteration train() on 'fused' at narrow width on a small
+    synthetic split: K3 and K4 launched at least 7 and 4 times an
+    iteration, both files written, and the file reloads into a state whose
+    Adam exp_avg, exp_avg_sq and step equal the run's bit for bit."""
+    import os
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train.loop import train
+    for split, seed in (("train", 0), ("val", 1)):
+        write_scene_files(str(tmp_path / "synth" / split), n_files=1,
+                          frames=60, max_peds=12, seed=seed)
+    monkeypatch.setenv("GROUPTRAJ_DATA_DIR", str(tmp_path))
+    cfg = ModelConfig(embedding_dim=8, encoder_h_dim_g=16,
+                      decoder_h_dim_g=16, noise_dim=(4,), bottleneck_dim=4,
+                      hidden_units=12, graph_out_dim=8, encoder_h_dim_d=16,
+                      mlp_dim=16)
+    tcfg = TrainConfig(dataset_name="synth", batch_size=8, best_k=4,
+                       num_epochs=0, num_iterations=6, steps_per_dispatch=3,
+                       print_every=3, checkpoint_every=3, n_buckets=2,
+                       num_samples_check=50, lstm_impl="fused", seed=6,
+                       output_dir=str(tmp_path / "out"), checkpoint_name="ck")
+    fwd, bwd = lstm_fused_fwd.launches, lstm_fused_bwd.launches
+    ckpt, state = train(cfg, tcfg, device=cuda, return_state=True)
+    assert lstm_fused_fwd.launches - fwd >= 7 * 6
+    assert lstm_fused_bwd.launches - bwd >= 4 * 6
+    assert ckpt["counters"]["t"] == 6 and len(ckpt["norm_g"]) == 6
+    assert np.isfinite(ckpt["norm_g"]).all()
+    for name in ("ck_with_model.pt", "ck_no_model.pt"):
+        assert os.path.isfile(tmp_path / "out" / name)
+    loaded = CK.load_checkpoint(str(tmp_path / "out" / "ck_with_model.pt"))
+    again = CK.state_from_checkpoint(loaded, cfg, tcfg, cuda)
+    for opt, module, opt2, module2 in ((state.g_opt, state.g, again.g_opt,
+                                        again.g),
+                                       (state.d_opt, state.d, again.d_opt,
+                                        again.d)):
+        params2 = dict(module2.named_parameters())
+        for name, p in module.named_parameters():
+            st, st2 = opt.state[p], opt2.state[params2[name]]
+            assert set(st) == set(st2) == {"step", "exp_avg", "exp_avg_sq"}
+            for k in st:
+                assert torch.equal(st[k], st2[k]), (name, k)
+            assert float(st["step"]) == 6

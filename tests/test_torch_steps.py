@@ -35,7 +35,7 @@ from grouptraj.parallel.data_parallel import synthetic_batch
 from grouptraj.train.steps import build_d_step, build_g_step
 from grouptraj.train.steps import init_train_state as jax_init_train_state
 from grouptraj_torch.compat import (
-    discriminator_state, generator_state, params_from_jax,
+    discriminator_state, generator_state, params_from_jax, params_to_jax,
 )
 from grouptraj_torch.config import ModelConfig, TrainConfig
 from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
@@ -322,3 +322,52 @@ def test_dropout_configs_raise(jax_run):
         TS.g_step(state, _batch(arrays), cfg, TCFG)
     with pytest.raises(NotImplementedError):
         TS.d_step(state, _batch(arrays), cfg, TCFG)
+
+
+# the zoo's other two models at narrow widths: gat-mh's first layer takes
+# the context (encoder_h 16 + bottleneck 4), gcn-pool's GCNPooling is 12
+# wide
+OTHER_MODELS = {
+    "gat-mh": dict(NARROW, graph_module="gat-mh", mlp_decoder_context=True,
+                   mh_n_units=(20, 8, 12), mh_n_heads=(2, 1)),
+    "gcn-pool": dict(NARROW, pooling_type="gcn", graph_module="none",
+                     mlp_decoder_context=True, bottleneck_dim=6,
+                     gcn_hidden_dim=12),
+}
+
+
+@pytest.mark.parametrize("model", sorted(OTHER_MODELS))
+def test_other_models_one_iteration_match_jax(model):
+    """One d-step + g-step of the gat-mh and gcn-pool models from one JAX
+    init, the draws injected: losses 1e-5 relative, parameters 1e-6
+    absolute (5% of lr where the reference moved a weight by less than
+    lr / 2, as in test_one_iteration_matches_jax). params_to_jax inverts
+    params_from_jax on both generators, bit for bit."""
+    jcfg, cfg = JaxModelConfig(**OTHER_MODELS[model]), ModelConfig(
+        **OTHER_MODELS[model])
+    state = jax_init_train_state(jax.random.PRNGKey(0), jcfg, JTCFG)
+    state.d_params["real_classifier"]["layers"][-1]["linear"]["b"] += 1.0
+    init = (_np_state(state.g_params, "generator"),
+            _np_state(state.d_params, "discriminator"))
+    back = params_to_jax(init[0], "generator")      # and the inverse
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(state.g_params)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(back),
+        jax.tree_util.tree_leaves(jax.device_get(state.g_params))))
+    batch = synthetic_batch(S, N, jcfg.obs_len, jcfg.pred_len, seed=5)
+    key_d, key_g, d_draw, g_draw = _draws(0)
+    state, ld = jax.jit(build_d_step(jcfg, JTCFG))(state, batch, key_d)
+    state, lg = jax.jit(build_g_step(jcfg, JTCFG))(state, batch, key_g)
+    ref_losses = {k: float(v) for k, v in {**ld, **lg}.items()}
+    assert ref_losses["norm_d"] > 0 and ref_losses["norm_g"] > 0
+
+    port = _port_state(init, cfg=cfg)
+    b = _batch({k: np.asarray(v) for k, v in batch.items()})
+    losses = TS.d_step(port, b, cfg, TCFG, **d_draw)
+    losses.update(TS.g_step(port, b, cfg, TCFG, **g_draw))
+    _assert_losses(losses, ref_losses)
+    _assert_params(port.d, _np_state(state.d_params, "discriminator"), 1e-6,
+                   f"{model} D", init[1], TCFG.d_learning_rate)
+    _assert_params(port.g, _np_state(state.g_params, "generator"), 1e-6,
+                   f"{model} G", init[0], TCFG.g_learning_rate)
