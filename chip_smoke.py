@@ -11,12 +11,13 @@ Phases, each of which fails the run on any error:
    any instance of K3, K4, K5 or K6;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
+   per-step decoder's pool in a best-of-20 decode (S=1,280, N=64), the
    discriminator's B=48 at S=128 and S=64 (N=64), R=2, ragged masks with
    holes and pad scenes, ReLU and duplicate-row ties, bf16 weights at B=8
    and 48, odd sizes (N=70, K=260, B=5), B=100 (two launches), N=256 at
    B=48; then K2 (its backward, csrc/pool_core_bwd.cu) against its plain
    version at the training shapes (S=64/N=64/B=8, S=128/N=64/B=48,
-   S=256/N=16), R=2, holes, pad scenes, odd sizes, ReLU-zero,
+   S=256/N=16, and the per-step decoder's S=1,280/N=64/B=8), R=2, holes, pad scenes, odd sizes, ReLU-zero,
    duplicate-row and exact-input ties, N=256 at B=48 (too wide to stage a
    scene in shared memory), a cotangent that is non-zero at invalid rows,
    and the recount of the forward's tie counts; kernel and plain times by
@@ -88,7 +89,18 @@ Phases, each of which fails the run on any error:
    into a state whose Adam moments and steps equal the run's bit for bit;
    the saved state's val sweep on the card against the CPU with injected
    draws (1e-4 relative); evaluate_bucketed of g_best_state on the card;
-   it/s of each run, ms per sweep event and ms per checkpoint save.
+   it/s of each run, ms per sweep event and ms per checkpoint save;
+9. presets: the ``gat`` preset with ``pool_every_timestep`` (the decoder
+   re-pools at every step: K1 on each of the 12 steps at K·S = 1,280
+   scenes, and in the dense g-step K2 on each) served at k=20 through the
+   Predictor at (S=64, N=64) and trained (batch 64, best_k=20) on 'scan'
+   and 'fused'; then the ``gcn``, ``sgan-p`` and ``sgan`` (local
+   discriminator) presets served and trained one iteration each on
+   'fused': every model against the plain pool (K1/K2's wrappers swapped
+   for their plain versions over scene chunks) and against the CPU on a
+   small batch, with launch counts, ms per call, it/s, peak memory and a
+   profile of the per-step paths (chiprun_out/profile_serve_pet.txt,
+   profile_train_pet.txt).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -381,8 +393,11 @@ def kernel_phase(rng):
     from grouptraj_torch.ops.pooling import pool_core
 
     errs, timed = [], {}
+    # serving's buckets, and the per-step decoder's pool in a best-of-20
+    # decode: K·S = 1,280 scenes a step
     main_cases = {"S64_N64_B8": realistic_valid(rng, 64, 64, 2, 57),
-                  "S256_N16_B8": realistic_valid(rng, 256, 16, 2, 16)}
+                  "S256_N16_B8": realistic_valid(rng, 256, 16, 2, 16),
+                  "S1280_N64_B8": realistic_valid(rng, 1280, 64, 2, 57)}
     # the discriminator's pool (B=48): the d-step's 2S = 128 scenes and the
     # g-step's S = 64
     b48_cases = {"S128_N64_B48": realistic_valid(rng, 128, 64, 2, 57),
@@ -585,7 +600,10 @@ def kernel_bwd_phase(rng):
     errs, timed = [], {}
     main_cases = {"S64_N64_B8": (realistic_valid(rng, 64, 64, 2, 57), 8),
                   "S128_N64_B48": (realistic_valid(rng, 128, 64, 2, 57), 48),
-                  "S256_N16_B8": (realistic_valid(rng, 256, 16, 2, 16), 8)}
+                  "S256_N16_B8": (realistic_valid(rng, 256, 16, 2, 16), 8),
+                  # the per-step decoder's backward in the dense g-step
+                  "S1280_N64_B8": (realistic_valid(rng, 1280, 64, 2, 57),
+                                   8)}
     for name, (valid, B) in main_cases.items():
         args = pool_inputs(rng, valid, B=B)
         errs.append(check_bwd(name, rng, *args))
@@ -1456,6 +1474,28 @@ def _one_iteration(state, batch, cfg, tcfg, noise, noises, label,
     return {**ld, **lg}, names, list(gd) + list(gg)
 
 
+def alive_state(cfg, tcfg, batch, gen):
+    """A seeded state whose discriminator is alive on most of ``batch``.
+    The discriminator's score passes a trailing ReLU (a quirk the port
+    keeps), so about every second initialisation scores 0 everywhere and
+    has no gradient at all; take the first seed from 2 up whose scores are
+    positive on at least half the valid rows, so that comparisons of
+    gradients compare something. -> (state, seed, alive share)."""
+    import torch
+    from grouptraj_torch.train.steps import init_train_state
+    for seed in range(2, 34):
+        gen.manual_seed(seed)
+        state = init_train_state(cfg, tcfg, generator=gen, device="cuda")
+        with torch.no_grad():
+            scores = state.d(torch.cat([batch["obs"], batch["pred"]], 2),
+                             torch.cat([batch["obs_rel"], batch["pred_rel"]],
+                                       2), batch["valid"])
+        alive = (scores[batch["valid"] > 0] > 0).float().mean().item()
+        if alive >= 0.5:
+            return state, seed, alive
+    fail("no seed in 2..33 gave a discriminator with positive scores")
+
+
 def train_phase():
     import copy
     import torch
@@ -1465,8 +1505,7 @@ def train_phase():
         gather_batch, synthetic_device_data,
     )
     from grouptraj_torch.train.steps import (
-        d_step, g_step, init_train_state, train_iterations,
-        train_state_from_modules,
+        d_step, g_step, train_iterations, train_state_from_modules,
     )
 
     cfg, tcfg = ModelConfig(), TrainConfig()
@@ -1478,23 +1517,7 @@ def train_phase():
                             generator=gen,
                             device="cuda") for N in data}
     batch = gather_batch(data[64], idx[64][0, 0], cfg.obs_len)
-    # The discriminator's score passes a trailing ReLU (a quirk the port
-    # keeps), so about every second initialisation scores 0 everywhere and
-    # has no gradient at all. Take the first seed whose discriminator is
-    # alive on most of the first batch, so the comparisons below compare
-    # something.
-    for seed in range(2, 34):
-        gen.manual_seed(seed)
-        state = init_train_state(cfg, tcfg, generator=gen, device="cuda")
-        with torch.no_grad():
-            scores = state.d(torch.cat([batch["obs"], batch["pred"]], 2),
-                             torch.cat([batch["obs_rel"], batch["pred_rel"]],
-                                       2), batch["valid"])
-        alive = (scores[batch["valid"] > 0] > 0).float().mean().item()
-        if alive >= 0.5:
-            break
-    else:
-        fail("no seed in 2..33 gave a discriminator with positive scores")
+    state, seed, alive = alive_state(cfg, tcfg, batch, gen)
     n_par = sum(p.numel() for m in (state.g, state.d)
                 for p in m.parameters())
     print(f"train: gat preset at full width (G H={cfg.encoder_h_dim_g}, "
@@ -1863,6 +1886,286 @@ def loop_phase(smi):
                       for k in runs["fused"]}, "pallas": runs["pallas"]}
 
 
+# ----------------------------------------------------------------- presets
+
+PET_ITERS = 3                # timed iterations of a per-step training run
+PLAIN_CHUNK = 128            # scenes per call of a plain pool reference
+
+
+def plain_pool_kernels():
+    """Within the block the wrappers of K1 and K2 run their plain PyTorch
+    versions on the card, over chunks of PLAIN_CHUNK scenes (a check's
+    reference, never the port's path): the plain versions hold [S, N, N,
+    512] slabs, 10.7 GB at the per-step decoder's S = 1,280. Scenes are
+    independent; the weight gradients sum over the chunks."""
+    import torch
+    from grouptraj_torch.ops import cuda_pool
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+
+    def chunked(fn, a, u, W2, b2, *per_scene):
+        """fn over scene chunks; a, u and ``per_scene`` [R, S, ...]."""
+        cut = lambda t, s: t[:, s:s + PLAIN_CHUNK]
+        outs = [fn(cut(a, s), cut(u, s), W2, b2,
+                   *[cut(t, s) for t in per_scene])
+                for s in range(0, a.shape[1], PLAIN_CHUNK)]
+        return tuple(torch.cat(p, 1) if p[0].dim() == a.dim() else sum(p)
+                     for p in zip(*outs))
+
+    def fwd(a, u, W2, b2, valid):
+        return chunked(pool_core, a, u, W2, b2, valid)
+
+    def bwd(a, u, W2, b2, valid, pooled, cnt, dpool, weight_grads=True,
+            debug=None):
+        da, du, dW2, db2 = chunked(pool_core_bwd_plain, a, u, W2, b2, valid,
+                                   pooled, cnt, dpool)
+        return (da, du, dW2, db2) if weight_grads else (da, du, None, None)
+
+    return _swapped(cuda_pool, pool_core_fwd=fwd, pool_core_bwd=bwd)
+
+
+def _positions_report(what, got, ref):
+    import numpy as np
+    d = max(np.abs(o - r).max() for o, r in zip(got, ref)) if got else 0.0
+    print(f"{what}: max |dpos| = {d:.3e} m (tolerance {SERVE_ATOL} m)")
+    if not d <= SERVE_ATOL:
+        fail(f"{what}: positions disagree")
+
+
+def presets_phase(batches, noises):
+    """The per-step pooling decoder and the other presets at full width.
+
+    1. The ``gat`` preset with ``pool_every_timestep`` (upstream
+       Social-GAN's per-step pooling; G H=32, pool 48→512→8, decoder MLP
+       40→64→32; D H=48, pool 64→512→48), seeded weights, k=20:
+       ``Predictor.predict_batch`` at (S=64, N=64) with realistic scenes,
+       its K1 launches (the context and every decode step at K·S = 1,280
+       scenes), kernel vs plain pool, card vs CPU on four small scenes,
+       ms per call, peak memory and a profile; then training (batch 64,
+       best_k=20: the dense best-of-k path) — one iteration's losses and
+       gradients, kernels vs plain pool and card vs CPU on a small batch —
+       and PET_ITERS iterations of ``train_iterations`` on 'scan' and on
+       'fused' with their launches, it/s and peak memory, and a profile.
+    2. ``gcn``, ``sgan-p`` and ``sgan`` (with the local discriminator):
+       one k=20 serving call (context + decode on 'fused') and one
+       training iteration on 'fused' each at S=64, N=64, against the
+       plain pool and the CPU as above, with the kernels each launched.
+
+    -> launch counts of the main paths serve_pet, train_pet,
+    train_pet_fused, serve_presets and train_presets (each driven with the
+    counts at 0 just before it and read just after)."""
+    import copy
+    import numpy as np
+    import torch
+    from grouptraj_torch.config import MODEL_PRESETS, ModelConfig, TrainConfig
+    from grouptraj_torch.serve import Predictor
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    from grouptraj_torch.train.steps import (
+        train_iterations, train_state_from_modules,
+    )
+    from grouptraj_torch.utils import relative_to_abs
+
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig()
+    S, k = tcfg.batch_size, tcfg.best_k
+    f32 = dataclasses.replace(tcfg, bf16_nograd=False)
+    data = synthetic_device_data(256, 64, seed=7, device="cuda")
+    data16 = synthetic_device_data(16, 16, seed=8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    idx = torch.randint(0, 256, (PET_ITERS + 1, 2, S), generator=gen,
+                        device="cuda")
+    batch = gather_batch(data, idx[0, 0], 8)
+    small = gather_batch(data16, torch.arange(4, device="cuda"), 8)
+    draw = dict(noise=torch.randn((S, 64, 8), generator=gen, device="cuda"),
+                noises=torch.randn((k, S, 64, 8), generator=gen,
+                                   device="cuda"), label=0.9)
+    sdraw = dict(noise=draw["noise"][:4, :16].contiguous(),
+                 noises=draw["noises"][:, :4, :16].contiguous(), label=0.9)
+    cpu = lambda t: t.cpu() if hasattr(t, "cpu") else t
+    sc, gr = batches["S64_N64"]
+    z = noises["S64_N64"]
+    few = [i for i, s in enumerate(sc) if s.shape[0] <= 16][:4]
+    few_sc, few_gr = [sc[i] for i in few], [gr[i] for i in few]
+    z_few = z[:, :4, :16].contiguous()
+
+    def iteration_checks(what, state, cfg, impl):
+        """One iteration's losses and gradients: kernels vs plain pool at
+        S=64/N=64, card vs CPU on a 4-scene N=16 batch."""
+        got = _one_iteration(state, batch, cfg, f32, **draw, impl=impl)
+        with plain_pool_kernels():
+            ref = _one_iteration(state, batch, cfg, f32, **draw, impl=impl)
+        _loss_report(f"{what} kernels vs plain pool", got[0], ref[0])
+        _grad_report(f"{what} kernels vs plain pool", got[1], got[2], ref[2])
+        del got, ref
+        got = _one_iteration(state, small, cfg, f32, **sdraw, impl=impl)
+        host = train_state_from_modules(copy.deepcopy(state.g).cpu(),
+                                        copy.deepcopy(state.d).cpu(), f32)
+        ref = _one_iteration(host, {k_: v.cpu() for k_, v in small.items()},
+                             cfg, f32, **{k_: cpu(v)
+                                          for k_, v in sdraw.items()},
+                             impl=impl)
+        _loss_report(f"{what} S4_N16 GPU vs CPU", got[0], ref[0])
+        _grad_report(f"{what} S4_N16 GPU vs CPU", got[1], got[2], ref[2])
+
+    # 1. gat + pool_every_timestep
+    pet = ModelConfig(pool_every_timestep=True)
+    state, seed, alive = alive_state(pet, tcfg, batch, gen)
+    print(f"presets: gat + pool_every_timestep at full width (decoder "
+          f"pool {pet.embedding_dim + pet.decoder_h_dim_g} -> 512 -> "
+          f"{pet.bottleneck_dim}, decoder MLP "
+          f"{pet.decoder_h_dim_g + pet.bottleneck_dim} -> {pet.mlp_dim} -> "
+          f"{pet.decoder_h_dim_g}), seed {seed} (D positive on "
+          f"{100 * alive:.0f}%)")
+    sd = {k_: v.detach() for k_, v in state.g.state_dict().items()}
+    p = Predictor(sd, pet, num_samples=K, param_dtype=None, device="cuda")
+    p.predict_batch(sc, gr, noises=z)                          # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    out = p.predict_batch(sc, gr, noises=z)
+    torch.cuda.synchronize()
+    serve_pet = all_counts()
+    print(f"serve_pet main path launches (one k={K} call, S=64, N=64): "
+          f"{json.dumps(serve_pet)}")
+    if serve_pet["pool_core_fwd"] < 1 + pet.pred_len:
+        fail("the per-step serving call must launch K1 for the context "
+             "and on every decode step")
+    if not all(np.isfinite(o).all() and o.shape == (K, s.shape[0],
+                                                    pet.pred_len, 2)
+               for o, s in zip(out, sc)):
+        fail("serve_pet: outputs not finite or of the wrong shape")
+    with plain_pool_kernels():
+        ref = p.predict_batch(sc, gr, noises=z)
+    _positions_report("serve_pet S64_N64 kernel vs plain pool", out, ref)
+    host = Predictor(sd, pet, num_samples=K, param_dtype=None, device="cpu")
+    _positions_report("serve_pet S4_N16 GPU vs CPU",
+                      p.predict_batch(few_sc, few_gr, noises=z_few),
+                      host.predict_batch(few_sc, few_gr,
+                                         noises=z_few.cpu()))
+    secs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        p.predict_batch(sc, gr, noises=z)              # host arrays: synced
+        secs.append(time.perf_counter() - t0)
+    serve_ms = statistics.median(secs) * 1e3
+    n_traj = K * sum(s.shape[0] for s in sc)
+    print(f"serve_pet S64_N64: {serve_ms:.2f} ms per predict_batch (median "
+          f"of 5), {n_traj / serve_ms * 1e3:.0f} traj/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_phase(lambda: p.predict_batch(sc, gr, noises=z),
+                  "per-step serving call", "profile_serve_pet.txt", serve_ms)
+    del p, host, out, ref
+
+    iteration_checks("train_pet S64_N64", state, pet, "scan")
+    launches, it_ms = {}, {}
+    for impl in ("scan", "fused"):
+        run = train_state_from_modules(copy.deepcopy(state.g),
+                                       copy.deepcopy(state.d), tcfg)
+        train_iterations(run, data, idx[:1], pet, tcfg, gen, impl=impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_iterations(run, data, idx[1:], pet, tcfg, gen, impl=impl)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[impl] = all_counts()
+        per = {k_: v / PET_ITERS for k_, v in launches[impl].items()}
+        it_ms[impl] = secs * 1e3 / PET_ITERS
+        print(f"train_pet {impl} main path launches: "
+              f"{json.dumps(launches[impl])} over {PET_ITERS} iterations; "
+              f"{PET_ITERS / secs:.2f} it/s ({it_ms[impl]:.1f} ms per "
+              f"iteration), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # K1 on every decode step of both steps; K2 on every decode step
+        # of the g-step's backward but the last (its re-pooled state feeds
+        # no output), besides the context's and D's pools
+        if per["pool_core_fwd"] < 2 * pet.pred_len or \
+                per["pool_core_bwd"] < pet.pred_len - 1:
+            fail(f"train_pet {impl}: K1 must run on every decode step of "
+                 f"both steps and K2 on the g-step's decode steps, got "
+                 f"{per} per iteration")
+        for name, v in out.items():
+            if not torch.isfinite(v).all():
+                fail(f"train_pet {impl}: loss {name} is not finite")
+    profile_phase(lambda: train_iterations(state, data, idx[:1], pet, tcfg,
+                                           gen, impl="fused"),
+                  "per-step training iteration fused",
+                  "profile_train_pet.txt", it_ms["fused"])
+
+    # 2. the other presets, on 'fused'
+    @torch.inference_mode()
+    def serve_call(model, tensors, noise):
+        obs, rel, grp, valid = tensors
+        ctx = model.generator_context(obs, rel, grp, valid, impl="fused")
+        preds = model.generator_sample_many(ctx, rel, valid, K,
+                                            user_noises=noise, impl="fused",
+                                            obs=obs, group_end=grp)
+        return list(relative_to_abs(preds, obs[None, :, :, -1, :])
+                    .cpu().numpy().transpose(1, 0, 2, 3, 4))
+
+    serve_presets, train_presets = {}, {}
+    add = lambda acc, c: acc.update({k_: acc.get(k_, 0) + v
+                                     for k_, v in c.items()})
+    for name in ("gcn", "sgan-p", "sgan"):
+        cfg = MODEL_PRESETS[name]
+        if name == "sgan":
+            cfg = dataclasses.replace(cfg, d_type="local")
+        state, seed, alive = alive_state(cfg, tcfg, batch, gen)
+        sd = {k_: v.detach() for k_, v in state.g.state_dict().items()}
+        p = Predictor(sd, cfg, num_samples=K, param_dtype=None,
+                      device="cuda")
+        tensors = p.pad_batch(sc, gr)
+        serve_call(p.model, tensors, z)                        # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = serve_call(p.model, tensors, z)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        counts = all_counts()
+        add(serve_presets, counts)
+        with plain_pool_kernels():
+            ref = serve_call(p.model, tensors, z)
+        _positions_report(f"serve {name} S64_N64 kernel vs plain pool", out,
+                          ref)
+        host = Predictor(sd, cfg, num_samples=K, param_dtype=None,
+                         device="cpu")
+        _positions_report(
+            f"serve {name} S4_N16 GPU vs CPU",
+            serve_call(p.model, p.pad_batch(few_sc, few_gr), z_few),
+            serve_call(host.model, host.pad_batch(few_sc, few_gr),
+                       z_few.cpu()))
+        print(f"serve {name} fused: launches {json.dumps(counts)}, "
+              f"{call_ms:.2f} ms per call (one, synchronised by the copy "
+              f"out); seed {seed}")
+        iteration_checks(f"train {name} fused S64_N64", state, cfg, "fused")
+        run = train_state_from_modules(copy.deepcopy(state.g),
+                                       copy.deepcopy(state.d), tcfg)
+        train_iterations(run, data, idx[:1], cfg, tcfg, gen, impl="fused")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_iterations(run, data, idx[1:2], cfg, tcfg, gen,
+                               impl="fused")
+        torch.cuda.synchronize()
+        it = (time.perf_counter() - t0) * 1e3
+        counts = all_counts()
+        add(train_presets, counts)
+        if not all(torch.isfinite(v).all() for v in out.values()):
+            fail(f"train {name}: a loss is not finite")
+        pools = ("no pool kernel (no pooling in G, the local D)"
+                 if counts["pool_core_fwd"] == 0 else
+                 f"K1 x{counts['pool_core_fwd']}, "
+                 f"K2 x{counts['pool_core_bwd']}")
+        print(f"train {name} fused: one iteration {it:.1f} ms, launches "
+              f"{json.dumps(counts)}: {pools}")
+    print(f"presets phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"serve_pet": serve_pet, "train_pet": launches["scan"],
+            "train_pet_fused": launches["fused"],
+            "serve_presets": serve_presets, "train_presets": train_presets}
+
+
 @contextlib.contextmanager
 def _swapped(module, **fns):
     """Within the block ``module``'s attributes are ``fns``."""
@@ -1963,13 +2266,17 @@ def main():
     eval_launches, _ = eval_phase(batches)
     train_launches = train_phase()
     loop_launches = loop_phase(smi.splitlines()[0])
+    preset_launches = presets_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
     # before it and read just after it: serving through the Predictor (scan
     # route), serving on the fused and on the pallas route, and
     # train_iterations at S=64, N=64 on the three routes (TRAIN_ITERS
-    # iterations each), eval on the three routes, and train() on the fused
-    # and pallas routes (LOOP_ITERS, the fused run with its resume). No
+    # iterations each), eval on the three routes, train() on the fused
+    # and pallas routes (LOOP_ITERS, the fused run with its resume), the
+    # per-step pooling model's serving call and PET_ITERS iterations on
+    # 'scan' and 'fused', and the other presets' serving calls and
+    # iterations (presets_phase). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -1986,7 +2293,7 @@ def main():
              "eval_fused": eval_launches["fused"],
              "eval_pallas": eval_launches["pallas"],
              "loop_fused": loop_launches["fused"],
-             "loop_pallas": loop_launches["pallas"]}
+             "loop_pallas": loop_launches["pallas"], **preset_launches}
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               **more):

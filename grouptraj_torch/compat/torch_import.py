@@ -6,8 +6,9 @@ layouts (``encoder.encoder.weight_ih_l0``, ``pool_net.mlp_pre_pool.2.weight``,
 ...), so a zoo ``g_state`` loads directly. :func:`params_from_jax` is the
 bridge from a JAX generator parameter tree (``[in, out]`` weights, gate
 order i,f,g,o) to that state dict — the port's own copy of the
-``export_state_dicts`` mapping for the ``gat``, ``gat-mh`` and ``gcn-pool``
-generators — and takes the discriminator's tree as well;
+``export_state_dicts`` mapping for every preset's generator (with the
+``pool_every_timestep`` decoder's ``pool_net`` and ``mlp``) — and takes the
+``global`` and ``local`` discriminators' trees as well;
 :func:`params_to_jax` is its inverse.
 
 The optimizer state crosses too. grouptraj checkpoints hold optax's state
@@ -109,14 +110,19 @@ def config_from_checkpoint_args(args: dict, g_state=None) -> ModelConfig:
 
 def generator_state(g_state: Mapping) -> Dict[str, torch.Tensor]:
     """A reference or grouptraj ``g_state`` as tensors the port's
-    generator loads: the dead era-(c) ``gcn_module.*`` weights (always
-    constructed, never called when a gatencoder is present) are dropped,
-    as ``grouptraj.compat.import_generator`` drops them."""
+    generator loads. Dead weights are dropped, as
+    ``grouptraj.compat.import_generator`` and the JAX generator leave them
+    unused: the era-(c) ``gcn_module.*`` (always constructed, never called
+    when a gatencoder is present), and an era-(b) ``mlp_decoder_context.*``
+    beside a live ``gcn_module`` (reference models.py:898-902)."""
     has_gat = any(k.startswith("gatencoder.") for k in g_state)
+    has_gcn = not has_gat and "gcn_module.gcn_intra.W.0" in g_state
+    dead = ("gcn_module." if has_gat
+            else "mlp_decoder_context." if has_gcn else None)
     return {k: v if isinstance(v, torch.Tensor)
             else torch.tensor(np.asarray(v))
             for k, v in g_state.items()
-            if not (has_gat and k.startswith("gcn_module."))}
+            if dead is None or not k.startswith(dead)}
 
 
 def discriminator_state(d_state: Mapping) -> Dict[str, torch.Tensor]:
@@ -130,10 +136,10 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
                     ) -> Dict[str, np.ndarray]:
     """JAX params (numpy leaves, ``jax.device_get(params)``) of the
     generator or (``kind='discriminator'``) the discriminator -> the
-    torch-named state dict of the port's module. Keys and layouts equal
-    ``grouptraj.compat.export_state_dicts(tree, kind)`` for the generators
-    the port builds (``gat``, ``gat-mh``, ``gcn-pool``) and the ``global``
-    discriminator; other trees raise NotImplementedError. A JAX
+    torch-named state dict of the port's module. Keys, their order and
+    layouts equal ``grouptraj.compat.export_state_dicts(tree, kind)`` for
+    every preset's generator and both discriminators; a batch_norm MLP, or
+    a tree with parts no port model has, raises NotImplementedError. A JAX
     ``TrainState``'s ``g_params``/``d_params`` thus become the port's G and
     D; the optimizer's moments, trees of the same shape, cross with
     :func:`adam_from_optax`."""
@@ -176,47 +182,53 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
         out[f"{prefix}.out_att.W"] = np.asarray(p["out_att"]["W"])
         out[f"{prefix}.out_att.a"] = np.asarray(p["out_att"]["a"])
 
-    later = NotImplementedError(
-        "params_from_jax covers the 'gat', 'gat-mh' and 'gcn-pool' "
-        "generators and the 'global' discriminator; the other presets are "
-        "not ported yet")
+    def known(parts, allowed):
+        if not set(parts) <= set(allowed):
+            raise NotImplementedError(
+                f"no {kind} of the port has the parts "
+                f"{sorted(set(parts) - set(allowed))}")
+
     if kind == "discriminator":
-        if (set(tree) != {"encoder", "real_classifier", "pool_net"}
-                or "mlp_pre_pool" not in tree["pool_net"]):
-            raise later
+        known(tree, ("encoder", "real_classifier", "pool_net"))
         lin("encoder.spatial_embedding", tree["encoder"]["spatial_embedding"])
         lstm("encoder.encoder", tree["encoder"]["lstm"])
         mlp("real_classifier", tree["real_classifier"])
-        pool_net("pool_net", tree["pool_net"])
+        if "pool_net" in tree:
+            pool_net("pool_net", tree["pool_net"])
         return out
     if kind != "generator":
         raise ValueError(f"kind must be 'generator' or 'discriminator', "
                          f"got {kind!r}")
-    ge = tree.get("gatencoder", {})
-    graph = ("gat-mh" if "gat_net" in ge else "gat" if ge
-             else "none" if "mlp_decoder_context" in tree else None)
-    gcn_pool = "gcn_pooling_net_intra" in tree.get("pool_net", {})
-    extra = set(tree) - {"encoder", "decoder", "pool_net", "gatencoder",
-                         "mlp_decoder_context"}
-    if (extra or "pool_net" in tree["decoder"] or "pool_net" not in tree
-            or graph is None or (graph == "none" and not gcn_pool)
-            or (graph == "gat" and "mlp_decoder_context" in tree)):
-        raise later
+    known(tree, ("encoder", "decoder", "pool_net", "gatencoder",
+                 "gcn_module", "mlp_decoder_context"))
+    dec = tree["decoder"]
+    known(dec, ("spatial_embedding", "lstm", "hidden2pos", "pool_net",
+                "mlp"))
     lin("encoder.spatial_embedding", tree["encoder"]["spatial_embedding"])
     lstm("encoder.encoder", tree["encoder"]["lstm"])
-    lin("decoder.spatial_embedding", tree["decoder"]["spatial_embedding"])
-    lstm("decoder.decoder", tree["decoder"]["lstm"])
-    lin("decoder.hidden2pos", tree["decoder"]["hidden2pos"])
-    pool_net("pool_net", tree["pool_net"])
-    if graph == "gat-mh":
+    lin("decoder.spatial_embedding", dec["spatial_embedding"])
+    lstm("decoder.decoder", dec["lstm"])
+    lin("decoder.hidden2pos", dec["hidden2pos"])
+    if "pool_net" in dec:
+        pool_net("decoder.pool_net", dec["pool_net"])
+        mlp("decoder.mlp", dec["mlp"])
+    if "pool_net" in tree:
+        pool_net("pool_net", tree["pool_net"])
+    ge = tree.get("gatencoder")
+    if ge is not None and "gat_net" in ge:
         for i, layer in enumerate(ge["gat_net"]["layer_stack"]):
             pre = f"gatencoder.gat_net.layer_stack.{i}"
             for name in ("w", "a_src", "a_dst", "bias"):
                 out[f"{pre}.{name}"] = np.asarray(layer[name])
-    elif graph == "gat":
+    elif ge is not None:
         gat("gatencoder.gat_intra", ge["gat_intra"])
         gat("gatencoder.gat_inter", ge["gat_inter"])
         lin("gatencoder.out_embedding", ge["out_embedding"])
+    if "gcn_module" in tree:
+        gm = tree["gcn_module"]
+        gcn("gcn_module.gcn_intra", gm["gcn_intra"])
+        gcn("gcn_module.gcn_inter", gm["gcn_inter"])
+        lin("gcn_module.out_embedding", gm["out_embedding"])
     if "mlp_decoder_context" in tree:
         mlp("mlp_decoder_context", tree["mlp_decoder_context"])
     return out
@@ -276,9 +288,11 @@ def params_to_jax(state: Mapping, kind: str = "generator") -> dict:
 
     tree = {"encoder": {"spatial_embedding": lin("encoder.spatial_embedding"),
                         "lstm": lstm("encoder.encoder")}}
+    has_pool = "pool_net.spatial_embedding.weight" in sd
     if kind == "discriminator":
         tree["real_classifier"] = mlp("real_classifier")
-        tree["pool_net"] = pool_net("pool_net")
+        if has_pool:
+            tree["pool_net"] = pool_net("pool_net")
         return tree
     if kind != "generator":
         raise ValueError(f"kind must be 'generator' or 'discriminator', "
@@ -286,7 +300,11 @@ def params_to_jax(state: Mapping, kind: str = "generator") -> dict:
     tree["decoder"] = {"spatial_embedding": lin("decoder.spatial_embedding"),
                        "lstm": lstm("decoder.decoder"),
                        "hidden2pos": lin("decoder.hidden2pos")}
-    tree["pool_net"] = pool_net("pool_net")
+    if "decoder.pool_net.spatial_embedding.weight" in sd:
+        tree["decoder"]["pool_net"] = pool_net("decoder.pool_net")
+        tree["decoder"]["mlp"] = mlp("decoder.mlp")
+    if has_pool:
+        tree["pool_net"] = pool_net("pool_net")
     if "gatencoder.gat_intra.attention_0.W" in sd:
         tree["gatencoder"] = {
             "gat_intra": gat("gatencoder.gat_intra"),
@@ -300,6 +318,10 @@ def params_to_jax(state: Mapping, kind: str = "generator") -> dict:
                            for name in ("w", "a_src", "a_dst", "bias")})
             i += 1
         tree["gatencoder"] = {"gat_net": {"layer_stack": layers}}
+    if "gcn_module.gcn_intra.W.0" in sd:
+        tree["gcn_module"] = {"gcn_intra": gcn("gcn_module.gcn_intra"),
+                              "gcn_inter": gcn("gcn_module.gcn_inter"),
+                              "out_embedding": lin("gcn_module.out_embedding")}
     if "mlp_decoder_context.0.weight" in sd:
         tree["mlp_decoder_context"] = mlp("mlp_decoder_context")
     return tree

@@ -46,7 +46,8 @@ def eval_step(model: TrajectoryGenerator, batch, num_samples: int,
                                       device=device)
     ctx = model.generator_context(obs, obs_rel, group, valid, impl)
     preds = model.generator_sample_many(ctx, obs_rel, valid, num_samples,
-                                        generator, user_noises, impl)
+                                        generator, user_noises, impl,
+                                        obs=obs, group_end=group)
     pred_abs = relative_to_abs(preds.float(), obs[None, :, :, -1, :])
     ade_raw = L.displacement_error(pred_abs, pred_gt[None], valid[None],
                                    mode="raw")                # [K, S, N]

@@ -1,5 +1,5 @@
-"""TrajectoryGenerator: LSTM encoder → social pooling → group GAT → noise →
-folded LSTM decoder, scene-padded dense (counterpart of
+"""TrajectoryGenerator: LSTM encoder → social pooling → group graph module
+→ noise → LSTM decoder, scene-padded dense (counterpart of
 ``grouptraj/models/generator.py``; reference ``sgan/models.py:715-927``).
 
 The module's parameters carry the reference's torch state-dict names and
@@ -16,12 +16,12 @@ Every function is differentiable (serving wraps its calls in
 route of ``ops/lstm.py``: ``'scan'`` (default), ``'fused'``, the
 whole-loop kernels for the encoder and the folded decoder, or ``'pallas'``,
 the projection-in-kernel LSTM for the encoder only (the decoder stays on
-the scan route's folded recurrence, as in the JAX package). Covered:
-pool_net or gcn pooling; the ``gat`` or ``gat-mh`` graph module (the latter
-followed by ``mlp_decoder_context``), or none with ``mlp_decoder_context``
-after gcn pooling (the ``gcn-pool`` preset); no per-step re-pooling. So
-every zoo checkpoint builds. The other presets (``gcn``, ``sgan``,
-``sgan-p``), ``pool_every_timestep`` and batch_norm raise.
+the scan route's folded recurrence, as in the JAX package). Covered: all
+five presets — pool_net, gcn or no pooling; the ``gat``, ``gat-mh`` or
+``gcn`` graph module, or none with ``mlp_decoder_context``; and the
+``pool_every_timestep`` decoder, which re-pools the decoder's state at
+every step (:func:`_decode_stepwise`, on every route). batch_norm and the
+non-ReLU activations raise; dropout raises where it would be used.
 """
 
 from __future__ import annotations
@@ -34,14 +34,14 @@ from torch import nn
 
 from grouptraj_torch.config import ModelConfig
 from grouptraj_torch.models.modules import (
-    GATEncoder, GATEncoderMH, GCNPooling, gat_encoder, gat_encoder_mh,
-    gcn_pooling,
+    GATEncoder, GATEncoderMH, GCNModule, GCNPooling, gat_encoder,
+    gat_encoder_mh, gcn_module, gcn_pooling,
 )
 from grouptraj_torch.ops.cuda_lstm import decoder_recurrence_fused
 from grouptraj_torch.ops.linear import linear, mlp_forward
 from grouptraj_torch.ops.lstm import (
     decoder_first_step, decoder_proj_recurrence, encoder_recurrence,
-    lstm_scan,
+    lstm_cell, lstm_scan,
 )
 from grouptraj_torch.ops.noise import get_noise
 from grouptraj_torch.ops.pooling import pool_hidden_net
@@ -82,16 +82,28 @@ class _Encoder(nn.Module):
 
 
 class _Decoder(nn.Module):
-    def __init__(self, embedding_dim: int, h_dim: int):
+    """The decoder's weights; with ``pool_every_timestep`` also its own
+    ``pool_net`` over the decoder state and the ``mlp`` that mixes the
+    pooled vector back into it."""
+
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.spatial_embedding = nn.Linear(2, embedding_dim)
-        self.decoder = LSTMWeights(embedding_dim, h_dim)
-        self.hidden2pos = nn.Linear(h_dim, 2)
+        E, H = cfg.embedding_dim, cfg.decoder_h_dim_g
+        self.spatial_embedding = nn.Linear(2, E)
+        self.decoder = LSTMWeights(E, H)
+        self.hidden2pos = nn.Linear(H, 2)
+        if cfg.pool_every_timestep:
+            self.pool_net = _pool_net(cfg, H)
+            self.mlp = _mlp([H + cfg.bottleneck_dim, cfg.mlp_dim, H])
 
     def tree(self) -> dict:
-        return {"spatial_embedding": _lin(self.spatial_embedding),
-                "lstm": self.decoder.tree(),
-                "hidden2pos": _lin(self.hidden2pos)}
+        p = {"spatial_embedding": _lin(self.spatial_embedding),
+             "lstm": self.decoder.tree(),
+             "hidden2pos": _lin(self.hidden2pos)}
+        if hasattr(self, "pool_net"):
+            p["pool_net"] = self.pool_net.tree()
+            p["mlp"] = _mlp_tree(self.mlp)
+        return p
 
 
 def _mlp(dims) -> nn.Sequential:
@@ -118,24 +130,38 @@ class _PoolHiddenNet(nn.Module):
                 "mlp_pre_pool": _mlp_tree(self.mlp_pre_pool)}
 
 
+def _pool_net(cfg: ModelConfig, h_dim: int) -> nn.Module:
+    """The pool-net of ``cfg.pooling_type`` over states of width h_dim."""
+    if cfg.pooling_type == "gcn":
+        return GCNPooling(cfg.embedding_dim, h_dim, cfg.gcn_hidden_dim,
+                          cfg.bottleneck_dim, cfg.gcn_layers)
+    return _PoolHiddenNet(cfg.embedding_dim, h_dim, cfg.bottleneck_dim)
+
+
+def _pooling(cfg: ModelConfig) -> bool:
+    return cfg.pooling_type not in (None, "none")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    gcn_pool = (cfg.pooling_type == "gcn" and cfg.graph_module == "none"
-                and cfg.mlp_decoder_context)
-    later = [
-        (cfg.pool_every_timestep, "pool_every_timestep (per-step pooling)"),
-        (cfg.pooling_type in (None, "none"), "pooling_type='none' (sgan)"),
-        (cfg.graph_module not in ("gat", "gat-mh") and not gcn_pool,
-         f"graph_module={cfg.graph_module!r} with pooling_type="
-         f"{cfg.pooling_type!r} (gcn, sgan-p presets)"),
-        (cfg.batch_norm or cfg.activation != "relu",
-         "batch_norm or a non-relu activation"),
-    ]
-    for flag, what in later:
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet: it comes with the slice for "
-                "the other presets and paths (ROADMAP.md queue 1); the "
-                "port covers the 'gat', 'gat-mh' and 'gcn-pool' models")
+    if cfg.batch_norm or cfg.activation != "relu":
+        raise NotImplementedError(
+            "batch_norm and the non-relu activations are not ported yet "
+            "(nor is dropout, which raises where it is used): they come "
+            "with the masked batch_norm MLP and the per-sample forward "
+            "(ROADMAP.md queue 1)")
+    if cfg.pooling_type not in (None, "none", "pool_net", "gcn"):
+        raise ValueError(f"pooling_type={cfg.pooling_type!r}")
+    if cfg.pool_every_timestep and not _pooling(cfg):
+        raise ValueError("pool_every_timestep needs a pooling_type "
+                         "('pool_net' or 'gcn'), got 'none'")
+    if cfg.graph_module not in ("gat", "gat-mh", "gcn", "none"):
+        raise ValueError(f"graph_module={cfg.graph_module!r}")
+
+
+def _mlp_decoder_needed(cfg: ModelConfig) -> bool:
+    """reference models.py:852-859."""
+    return bool(cfg.noise_first_dim) or _pooling(cfg) or (
+        cfg.encoder_h_dim_g != cfg.decoder_h_dim_g)
 
 
 class TrajectoryGenerator(nn.Module):
@@ -144,34 +170,32 @@ class TrajectoryGenerator(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.encoder = _Encoder(cfg.embedding_dim, cfg.encoder_h_dim_g)
-        self.decoder = _Decoder(cfg.embedding_dim, cfg.decoder_h_dim_g)
-        if cfg.pooling_type == "gcn":
-            self.pool_net = GCNPooling(cfg.embedding_dim, cfg.encoder_h_dim_g,
-                                       cfg.gcn_hidden_dim, cfg.bottleneck_dim,
-                                       cfg.gcn_layers)
-        else:
-            self.pool_net = _PoolHiddenNet(cfg.embedding_dim,
-                                           cfg.encoder_h_dim_g,
-                                           cfg.bottleneck_dim)
+        self.decoder = _Decoder(cfg)
+        if _pooling(cfg):
+            self.pool_net = _pool_net(cfg, cfg.encoder_h_dim_g)
         if cfg.graph_module == "gat":
             self.gatencoder = GATEncoder(cfg.context_dim, cfg.hidden_units,
                                          cfg.graph_out_dim,
                                          cfg.decoder_context_dim, cfg.n_heads)
+        elif cfg.graph_module == "gcn":
+            self.gcn_module = GCNModule(cfg.context_dim, cfg.gcn_hidden_dim,
+                                        cfg.graph_out_dim, cfg.gcn_layers,
+                                        cfg.decoder_context_dim)
         elif cfg.graph_module == "gat-mh":
             self.gatencoder = GATEncoderMH(cfg.mh_n_units, cfg.mh_n_heads)
             self.mlp_decoder_context = _mlp(
                 [cfg.mh_n_units[-1], cfg.mlp_dim, cfg.decoder_context_dim])
-        else:                                   # gcn-pool: the context MLP
+        elif cfg.mlp_decoder_context:   # gcn-pool, sgan-p, sgan
             self.mlp_decoder_context = _mlp(
                 [cfg.context_dim, cfg.mlp_dim, cfg.decoder_context_dim])
 
     def tree(self) -> dict:
         """The parameters as the JAX package's tree (views, no copies)."""
         p = {"encoder": self.encoder.tree(),
-             "decoder": self.decoder.tree(),
-             "pool_net": self.pool_net.tree()}
-        if hasattr(self, "gatencoder"):
-            p["gatencoder"] = self.gatencoder.tree()
+             "decoder": self.decoder.tree()}
+        for name in ("pool_net", "gatencoder", "gcn_module"):
+            if hasattr(self, name):
+                p[name] = getattr(self, name).tree()
         if hasattr(self, "mlp_decoder_context"):
             p["mlp_decoder_context"] = _mlp_tree(self.mlp_decoder_context)
         return p
@@ -185,21 +209,24 @@ class TrajectoryGenerator(nn.Module):
         [S, N]."""
         cfg, p = self.cfg, self.tree()
         final_h = _encode(p["encoder"], obs_rel, impl)        # [S, N, He]
-        if cfg.pooling_type == "gcn":
-            pool_h = gcn_pooling(p["pool_net"], final_h, obs_rel[:, :, -1, :],
-                                 group_end, valid)
-        else:
-            pool_h = pool_hidden_net(p["pool_net"], final_h, obs[:, :, -1, :],
-                                     valid, cfg.activation, cfg.batch_norm,
-                                     impl=cfg.pool_impl)
-        ctx = torch.cat([final_h, pool_h], dim=-1)            # [S, N, He+B]
+        ctx = final_h
+        if _pooling(cfg):
+            pool_h = _pool(p["pool_net"], cfg, final_h, obs[:, :, -1, :],
+                           obs_rel[:, :, -1, :], group_end, valid)
+            ctx = torch.cat([final_h, pool_h], dim=-1)        # [S, N, He+B]
+        if not _mlp_decoder_needed(cfg):
+            return ctx
         if cfg.graph_module == "gat":
             return gat_encoder(p["gatencoder"], ctx, group_end, valid,
                                cfg.alpha)
+        if cfg.graph_module == "gcn":
+            return gcn_module(p["gcn_module"], ctx, group_end, valid)
         if cfg.graph_module == "gat-mh":
             ctx = gat_encoder_mh(p["gatencoder"], ctx, group_end, valid,
                                  cfg.alpha, cfg.mh_adj, cfg.mh_concat,
                                  cfg.mh_norm)
+        elif not cfg.mlp_decoder_context:
+            return ctx
         return mlp_forward(p["mlp_decoder_context"], ctx, cfg.activation,
                            cfg.batch_norm, cfg.dropout, mask=valid)
 
@@ -207,10 +234,16 @@ class TrajectoryGenerator(nn.Module):
                          obs_rel: torch.Tensor, valid: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          user_noise: Optional[torch.Tensor] = None,
-                         impl: str = "scan") -> torch.Tensor:
+                         impl: str = "scan", *,
+                         obs: Optional[torch.Tensor] = None,
+                         group_end: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
         """One sample: noise concat + decode -> pred_rel [S, N, Tp, 2] in
         ``noise_input``'s dtype (float32 with ``impl='fused'``), × valid.
-        ``user_noise`` ``[S, N, nd]`` replaces the internal draw."""
+        ``user_noise`` ``[S, N, nd]`` replaces the internal draw. ``obs``
+        [S, N, To, 2] and ``group_end`` [S, N] are what the
+        ``pool_every_timestep`` decoder pools on (required there, unused
+        otherwise)."""
         cfg = self.cfg
         S, N = valid.shape
         h = noise_input
@@ -220,8 +253,8 @@ class TrajectoryGenerator(nn.Module):
                 z = sample_noises(cfg, 1, S, N, generator,
                                   noise_input.device)[0]
             h = torch.cat([h, z.to(noise_input.dtype)], dim=-1)
-        return _decode_folded(self.decoder.tree(), cfg, h,
-                              obs_rel[:, :, -1, :], valid, impl)
+        return _decode(self.decoder.tree(), cfg, h, obs_rel[:, :, -1, :],
+                       valid, impl, _last(obs), group_end)
 
     def generator_forward(self, obs: torch.Tensor, obs_rel: torch.Tensor,
                           group_end: torch.Tensor, valid: torch.Tensor,
@@ -232,19 +265,25 @@ class TrajectoryGenerator(nn.Module):
         :meth:`generator_context` then :meth:`generator_sample`."""
         ctx = self.generator_context(obs, obs_rel, group_end, valid, impl)
         return self.generator_sample(ctx, obs_rel, valid, generator,
-                                     user_noise, impl)
+                                     user_noise, impl, obs=obs,
+                                     group_end=group_end)
 
     def generator_sample_many(self, noise_input: torch.Tensor,
                               obs_rel: torch.Tensor, valid: torch.Tensor,
                               num_samples: int,
                               generator: Optional[torch.Generator] = None,
                               user_noises: Optional[torch.Tensor] = None,
-                              impl: str = "scan") -> torch.Tensor:
+                              impl: str = "scan", *,
+                              obs: Optional[torch.Tensor] = None,
+                              group_end: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
         """All K best-of-k samples in ONE decoder pass -> rel predictions
         [K, S, N, Tp, 2]: each sample's noise is concatenated to the shared
         context, then the scene axis is tiled K-fold into ``[K·S, N]`` rows
         (scenes are independent in the decoder). ``user_noises``
-        ``[K, S, N, nd]`` replaces the internal draws."""
+        ``[K, S, N, nd]`` replaces the internal draws. ``obs`` and
+        ``group_end`` as in :meth:`generator_sample`, tiled K-fold like
+        ``valid``."""
         cfg = self.cfg
         K = num_samples
         S, N = valid.shape
@@ -256,12 +295,31 @@ class TrajectoryGenerator(nn.Module):
             h = torch.cat([h, z.to(noise_input.dtype)], dim=-1)
 
         def tile(t):
+            if t is None:
+                return None
             return t[None].expand(K, *t.shape).reshape(K * S, *t.shape[1:])
 
-        pred = _decode_folded(self.decoder.tree(), cfg,
-                              h.reshape(K * S, N, -1),
-                              tile(obs_rel[:, :, -1, :]), tile(valid), impl)
+        pred = _decode(self.decoder.tree(), cfg, h.reshape(K * S, N, -1),
+                       tile(obs_rel[:, :, -1, :]), tile(valid), impl,
+                       tile(_last(obs)), tile(group_end))
         return pred.reshape(K, S, N, cfg.pred_len, 2)
+
+
+def _last(obs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if obs is None else obs[:, :, -1, :]
+
+
+def _pool(params: dict, cfg: ModelConfig, h: torch.Tensor,
+          end_pos: torch.Tensor, last_rel: torch.Tensor,
+          labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The pool-net of ``cfg.pooling_type``: PoolHiddenNet anchored at the
+    absolute positions ``end_pos`` (through kernel K1 on CUDA tensors with
+    ``pool_impl='auto'``), or GCNPooling on the relative step ``last_rel``
+    and the group labels -> [S, N, bottleneck]."""
+    if cfg.pooling_type == "gcn":
+        return gcn_pooling(params, h, last_rel, labels, valid)
+    return pool_hidden_net(params, h, end_pos, valid, cfg.activation,
+                           cfg.batch_norm, impl=cfg.pool_impl)
 
 
 def sample_noises(cfg: ModelConfig, K: int, S: int, N: int,
@@ -302,6 +360,60 @@ def _encode(enc: dict, traj_rel: torch.Tensor, impl: str = "scan"
     xs = traj_rel.reshape(S * N, T, 2).transpose(0, 1)        # [T, S·N, 2]
     h_t, _ = encoder_recurrence(w_comp, b_comp, lstm["w_hh"].float(), xs)
     return h_t.reshape(S, N, -1)
+
+
+def _decode(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
+            last_pos_rel: torch.Tensor, valid: torch.Tensor, impl: str,
+            last_pos: Optional[torch.Tensor],
+            group_end: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decoder (reference Decoder, models.py:95-178): folded without
+    per-step re-pooling, stepwise with it (``impl`` then changes nothing,
+    as in the JAX package)."""
+    if not cfg.pool_every_timestep:
+        return _decode_folded(dec, cfg, h0, last_pos_rel, valid, impl)
+    if last_pos is None or group_end is None:
+        raise ValueError("pool_every_timestep decodes from the last "
+                         "absolute positions and the group labels: pass "
+                         "obs= and group_end=")
+    return _decode_stepwise(dec, cfg, h0, last_pos, last_pos_rel, group_end,
+                            valid)
+
+
+def _decode_stepwise(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
+                     last_pos: torch.Tensor, last_pos_rel: torch.Tensor,
+                     group_end: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """The ``pool_every_timestep`` decoder, one step at a time in ``h0``'s
+    dtype (``grouptraj/models/generator.py:_decode``). Carry (h, c, pos,
+    rel); a step embeds rel, runs the LSTM cell, projects h to the new rel,
+    moves pos by it, pools the ``[S, N, H]`` state at the NEW absolute
+    positions (GCNPooling: at the new rel, with the group labels) and
+    replaces h — not c — by ``decoder.mlp(h ‖ pool_h)``, the MLP's trailing
+    ReLU kept. The pool runs in float32 whatever the decoder's dtype (its
+    kernel K1 takes float32 a/u) and its result is cast back. Returns
+    pred_rel [S, N, T, 2], zero at invalid peds."""
+    S, N, H = h0.shape
+    dt = h0.dtype
+    lstm = {k: v.to(dt) for k, v in dec["lstm"].items()}
+    h = h0.reshape(S * N, H)
+    c = torch.zeros_like(h)
+    pos = last_pos.to(dt).reshape(S * N, 2)
+    rel = last_pos_rel.to(dt).reshape(S * N, 2)
+    rels = []
+    for _ in range(cfg.pred_len):
+        h, c = lstm_cell(lstm, linear(dec["spatial_embedding"], rel), h, c)
+        rel = linear(dec["hidden2pos"], h)
+        pos = pos + rel
+        hs = h.reshape(S, N, H)
+        pool_h = _pool(dec["pool_net"], cfg, hs.float(),
+                       pos.reshape(S, N, 2).float(),
+                       rel.reshape(S, N, 2).float(), group_end, valid)
+        h = mlp_forward(dec["mlp"], torch.cat([hs, pool_h.to(dt)], dim=-1),
+                        cfg.activation, cfg.batch_norm, cfg.dropout,
+                        mask=valid).reshape(S * N, H)
+        rels.append(rel)
+    pred_rel = torch.stack(rels, dim=1).reshape(S, N, cfg.pred_len, 2)
+    return pred_rel * valid[..., None, None]
 
 
 def _decode_folded(dec: dict, cfg: ModelConfig, h0: torch.Tensor,

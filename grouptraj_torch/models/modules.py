@@ -10,8 +10,12 @@
   scaling), concat intra‖inter, project;
 - :func:`gat_encoder_mh`, the ``gat-mh`` graph module: one batched
   multi-head GAT stack over the row-normalised intra-group adjacency;
+- :func:`gcn_module`, the ``gcn`` preset's graph module, the GCN twin of
+  :func:`gat_encoder` (reference ``sgan/models.py:583-712``);
 - :func:`gcn_pooling`, the ``gcn-pool`` preset's pool-net (the
-  reconstruction of the reference's lost GCNPooling).
+  reconstruction of the reference's lost GCNPooling), also the decoder's
+  per-step pool-net of a ``gcn`` pooling model with
+  ``pool_every_timestep``.
 
 The ``nn.Module`` classes hold the weights under the reference's torch
 names; the functions take their ``tree()`` views.
@@ -162,6 +166,43 @@ class GCN(nn.Module):
 
     def tree(self) -> dict:
         return {"W": list(self.W)}
+
+
+class GCNModule(nn.Module):
+    """The ``gcn`` graph module's weights: ``gcn_intra`` in→hidden→out,
+    ``gcn_inter`` out→hidden→out, ``out_embedding`` 2·out→final."""
+
+    def __init__(self, input_dim: int = 40, hidden_dim: int = 72,
+                 out_dim: int = 16, gcn_layers: int = 2,
+                 final_dim: int = 24):
+        super().__init__()
+        self.gcn_intra = GCN(input_dim, hidden_dim, out_dim, gcn_layers)
+        self.gcn_inter = GCN(out_dim, hidden_dim, out_dim, gcn_layers)
+        self.out_embedding = nn.Linear(2 * out_dim, final_dim)
+
+    def tree(self) -> dict:
+        return {"gcn_intra": self.gcn_intra.tree(),
+                "gcn_inter": self.gcn_inter.tree(),
+                "out_embedding": {"w": self.out_embedding.weight.t(),
+                                  "b": self.out_embedding.bias}}
+
+
+def gcn_module(params: dict, x: torch.Tensor, labels: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """The ``gcn`` graph module: :func:`gat_encoder`'s two levels with a
+    GCN at each, the intra GCN over the row-normalised intra-group
+    adjacency and the inter GCN over the row-normalised complete group
+    graph. x [S, N, in] -> [S, N, final], zero at invalid peds."""
+    a_intra = normalize_adjacency(intra_group_adjacency(labels, valid))
+    intra = gcn(params["gcn_intra"], a_intra, x)
+    r_raw, group_valid = group_membership(labels, valid)
+    r = normalize_adjacency(r_raw)
+    x_group = r @ intra                                     # GPool  [S, M, F]
+    a_inter = normalize_adjacency(inter_group_adjacency(group_valid))
+    y_group = gcn(params["gcn_inter"], a_inter, x_group)
+    inter = torch.einsum("smn,smf->snf", r, y_group)        # GUnpool (Rᵀ @ y)
+    out = linear(params["out_embedding"], torch.cat([intra, inter], dim=-1))
+    return torch.where(valid[..., None] > 0, out, 0.0)
 
 
 class GCNPooling(nn.Module):

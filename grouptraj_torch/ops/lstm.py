@@ -60,6 +60,16 @@ def lstm_gates(z: torch.Tensor, c: torch.Tensor, H: int
     return o * torch.tanh(c_new), c_new
 
 
+def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
+              c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step, plain autograd (the stepwise decoder's cell). x
+    [B, in], h/c [B, H] -> (h', c'). The gates sum in the JAX package's
+    order, ``x W_ih + h W_hh + (b_ih + b_hh)``."""
+    gates = x @ params["w_ih"] + h @ params["w_hh"] + (
+        params["b_ih"] + params["b_hh"])
+    return lstm_gates(gates, c, h.shape[-1])
+
+
 def _gates_bwd(z, c_prev, dh, dc_in, H):
     """One step of the gate backward, gates recomputed from z: returns
     (dz [B, 4H], dc chained to c_prev, h of this step)."""

@@ -140,6 +140,7 @@ class Predictor:
         ctx = self.model.generator_context(obs_t, rel_t, grp_t, valid_t)
         preds = self.model.generator_sample_many(
             ctx, rel_t, valid_t, self.num_samples, self._gen,
-            user_noises=noises)                            # [k, S, N, Tp, 2]
+            user_noises=noises, obs=obs_t,
+            group_end=grp_t)                               # [k, S, N, Tp, 2]
         preds = relative_to_abs(preds, obs_t[None, :, :, -1, :]).cpu().numpy()
         return [preds[:, i, :s.shape[0]] for i, s in enumerate(scenes)]

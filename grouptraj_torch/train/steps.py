@@ -45,7 +45,7 @@ from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
 from grouptraj_torch.models.generator import (
     LSTMWeights, TrajectoryGenerator, sample_noises,
 )
-from grouptraj_torch.models.modules import GATLayer
+from grouptraj_torch.models.modules import GCN, GATLayer
 from grouptraj_torch.ops.lstm import select_impl
 from grouptraj_torch.train.device_data import gather_batch
 from grouptraj_torch.utils import relative_to_abs, resolve_device
@@ -79,7 +79,8 @@ def make_optimizers(g: nn.Module, d: nn.Module, tcfg: TrainConfig):
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisation drawn from ``generator``: every
     Linear weight Kaiming-normal with torch's default bias, every LSTM
-    tensor U(±1/√H), GAT tensors Xavier-uniform with gain 1.414."""
+    tensor U(±1/√H), GAT tensors Xavier-uniform with gain 1.414, GCN
+    weights standard normal."""
     def uniform_(p, bound):
         p.copy_((torch.rand(p.shape, generator=generator, device=p.device)
                  * 2.0 - 1.0) * bound)
@@ -98,6 +99,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, GATLayer):
                 for p in (m.W, m.a):
                     uniform_(p, 1.414 * math.sqrt(6.0 / sum(p.shape)))
+            elif isinstance(m, GCN):
+                for p in m.W:
+                    p.copy_(torch.randn(p.shape, generator=generator,
+                                        device=p.device))
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -213,13 +218,15 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
         if noise is None and cfg.noise_first_dim:
             noise = sample_noises(cfg, 1, *b["valid"].shape, generator,
                                   dev)[0]
+        at = dict(obs=b["obs"], group_end=b["group"])
         if tcfg.bf16_nograd:
             pred_rel_fake = state.g.generator_sample(
                 ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"],
-                user_noise=noise, impl=impl).float()
+                user_noise=noise, impl=impl, **at).float()
         else:
             pred_rel_fake = state.g.generator_sample(
-                ctx, b["obs_rel"], b["valid"], user_noise=noise, impl=impl)
+                ctx, b["obs_rel"], b["valid"], user_noise=noise, impl=impl,
+                **at)
     tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
     # real and fake scored in ONE stacked forward: scenes are independent
     # rows, so this halves the discriminator's sequential depth
@@ -267,7 +274,9 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     ``bf16_nograd``), then only those two decode again with grad as one
     stacked ``[2S, N]`` batch. The loss value is unchanged and the
     gradients equal the dense path's except at exact per-scene ties. The
-    dense path decodes all k with grad."""
+    dense path decodes all k with grad; it is taken whenever the decoder
+    re-pools at every step (``pool_every_timestep``), as in the JAX
+    package."""
     _check_trainable(cfg)
     impl = select_impl(cfg, tcfg) if impl is None else impl
     b, g = batch, state.g
@@ -275,7 +284,8 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     S, N = b["valid"].shape
     dev = b["valid"].device
     pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
-    sparse = tcfg.sparse_best_k and tcfg.l2_loss_weight > 0 and k > 1
+    sparse = (tcfg.sparse_best_k and tcfg.l2_loss_weight > 0 and k > 1
+              and not cfg.pool_every_timestep)
 
     ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"], b["valid"],
                               impl)
@@ -309,7 +319,8 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
                                b["valid"], tcfg.l2_loss_weight), denom)
     else:
         preds = g.generator_sample_many(ctx, b["obs_rel"], b["valid"], k,
-                                        user_noises=noises, impl=impl)
+                                        user_noises=noises, impl=impl,
+                                        obs=b["obs"], group_end=b["group"])
         variety = L.variety_l2_loss(
             preds, b["pred_rel"], pred_loss_mask, b["valid"],
             tcfg.l2_loss_weight) if tcfg.l2_loss_weight > 0 \

@@ -11,7 +11,12 @@ K5 on misaligned views, and a training iteration with
 ``lstm_impl='pallas'`` against ``'scan'``; Bo20 evaluation of a gat, a
 gat-mh and a gcn-pool zoo file on the three routes against the port on
 the CPU, with the kernels' launches; a short ``train()`` on 'fused' whose
-checkpoint reloads with the run's Adam state bit for bit. Marked
+checkpoint reloads with the run's Adam state bit for bit; K1 and K2 at the
+per-step decoder's best-of-20 shape [1280, 64, 512, 8] against their plain
+versions, the ``pool_every_timestep`` decoder launching K1 on every decode
+step and K2 on every step of its backward, and a ``train()`` of the
+``sgan-p`` preset with ``pool_every_timestep`` through a save and a resume.
+Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
@@ -596,3 +601,120 @@ def test_fused_training_loop_saves_and_reloads_adam(cuda, tmp_path,
             for k in st:
                 assert torch.equal(st[k], st2[k]), (name, k)
             assert float(st["step"]) == 6
+
+
+# ------------------------------------- per-step pooling in the decoder loop
+
+def _chunked_plain(fn, a, u, W2, b2, valid, *rest, chunk=128):
+    """A plain pool function over scene chunks (scenes are independent;
+    the weight gradients, when returned, sum over the chunks): the plain
+    versions materialise [S, N, N, K] slabs, too wide at S = 1,280."""
+    outs = [fn(a[:, s:s + chunk], u[:, s:s + chunk], W2, b2,
+               valid[:, s:s + chunk], *[t[:, s:s + chunk] for t in rest])
+            for s in range(0, a.shape[1], chunk)]
+    return [torch.cat(parts, 1) if parts[0].dim() == a.dim() else
+            sum(parts) for parts in zip(*outs)]
+
+
+def test_per_step_pool_shape_matches_plain(cuda):
+    """K1 and K2 at the per-step decoder's shape in a best-of-20 decode,
+    [K·S, N, 512, 8] = [1280, 64, 512, 8], against their plain versions:
+    pooled atol 1e-4, cnt exact, da/du 1e-5 and dW2/db2 1e-4 of the
+    largest reference entry given the kernel's tie selection."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    a, u, W2, b2, valid = _inputs(cuda, 1, 1280, 64, 8, seed=12)
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid)
+    ref, ref_cnt = _chunked_plain(pool_core, a, u, W2, b2, valid)
+    rows = valid > 0
+    assert (pooled - ref)[rows].abs().max().item() <= 1e-4
+    assert torch.equal(cnt[rows], ref_cnt[rows])
+    dpool = torch.randn_like(pooled)
+    dbg = {}
+    out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool, debug=dbg)
+    assert torch.equal(dbg["recount"][rows], cnt[rows])
+    ref = _chunked_plain(
+        lambda *t: pool_core_bwd_plain(*t[:8], ties=t[8]), a, u, W2, b2,
+        valid, pooled, cnt, dpool, dbg["ties"])
+    for x, r, tol in zip(out, ref, (1e-5, 1e-5, 1e-4, 1e-4)):
+        assert (x - r).abs().max().item() <= tol * max(1.0, r.abs().max().item())
+
+
+def test_per_step_decoder_launches_k1_every_step(cuda):
+    """The gat preset with pool_every_timestep on the card: K1 once for
+    the context and once per decode step; in the backward K2 for the
+    context and every decode step but the last, whose re-pooled state
+    feeds no output (autograd skips it; the JAX scan discards it too);
+    positions against the plain pool within 1e-3 m."""
+    from grouptraj_torch.config import ModelConfig
+    from grouptraj_torch.models.generator import TrajectoryGenerator
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    torch.manual_seed(0)
+    cfg = ModelConfig(pool_every_timestep=True)
+    g = TrajectoryGenerator(cfg).to(cuda)
+    b = gather_batch(synthetic_device_data(16, 32, device=cuda),
+                     torch.arange(8, device=cuda), cfg.obs_len)
+    z = torch.randn(4, 8, 32, 8, device=cuda)
+
+    def run(model):
+        ctx = model.generator_context(b["obs"], b["obs_rel"], b["group"],
+                                      b["valid"])
+        return model.generator_sample_many(ctx, b["obs_rel"], b["valid"], 4,
+                                           user_noises=z, obs=b["obs"],
+                                           group_end=b["group"])
+
+    fwd, bwd = pool_core_fwd.launches, pool_core_bwd.launches
+    preds = run(g)
+    assert pool_core_fwd.launches - fwd == 1 + cfg.pred_len
+    preds.square().sum().backward()
+    assert pool_core_bwd.launches - bwd == 1 + cfg.pred_len - 1
+    plain = TrajectoryGenerator(dataclasses.replace(cfg, pool_impl="fast"))
+    plain.load_state_dict(g.state_dict())
+    with torch.no_grad():
+        ref = run(plain.to(cuda))
+    assert pool_core_fwd.launches - fwd == 1 + cfg.pred_len
+    assert (preds.detach() - ref).abs().max().item() <= 1e-3
+
+
+def test_sgan_p_per_step_training_loop_saves_and_reloads(cuda, tmp_path,
+                                                         monkeypatch):
+    """train() of the sgan-p preset with pool_every_timestep (dense
+    best-of-k: K1 and K2 on every decode step) for 4 iterations on a small
+    synthetic split, then a resume to 6 from its file: finite losses, K2
+    launched at least pred_len times an iteration, and the file reloads
+    into a state whose Adam moments equal the first run's bit for bit."""
+    from grouptraj_torch.config import MODEL_PRESETS, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train.loop import train
+    for split, seed in (("train", 0), ("val", 1)):
+        write_scene_files(str(tmp_path / "synth" / split), n_files=1,
+                          frames=60, max_peds=12, seed=seed)
+    monkeypatch.setenv("GROUPTRAJ_DATA_DIR", str(tmp_path))
+    cfg = dataclasses.replace(MODEL_PRESETS["sgan-p"],
+                              pool_every_timestep=True)
+    tcfg = TrainConfig(dataset_name="synth", batch_size=8, best_k=4,
+                       num_epochs=0, num_iterations=4, steps_per_dispatch=2,
+                       print_every=2, checkpoint_every=2, n_buckets=2,
+                       num_samples_check=50, lstm_impl="fused", seed=6,
+                       output_dir=str(tmp_path / "out"), checkpoint_name="ck")
+    bwd = pool_core_bwd.launches
+    ckpt, state = train(cfg, tcfg, device=cuda, return_state=True)
+    assert pool_core_bwd.launches - bwd >= 4 * cfg.pred_len
+    assert ckpt["counters"]["t"] == 4 and np.isfinite(ckpt["norm_g"]).all()
+    path = str(tmp_path / "out" / "ck_with_model.pt")
+    again = CK.state_from_checkpoint(CK.load_checkpoint(path), cfg, tcfg,
+                                     cuda)
+    params2 = dict(again.g.named_parameters())
+    assert "decoder.pool_net.mlp_pre_pool.0.weight" in params2
+    for name, p in state.g.named_parameters():
+        st, st2 = state.g_opt.state[p], again.g_opt.state[params2[name]]
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[k], st2[k]), (name, k)
+    ckpt = train(cfg, dataclasses.replace(tcfg, num_iterations=6),
+                 device=cuda)
+    assert ckpt["counters"]["t"] == 6 and ckpt["restore_ts"]

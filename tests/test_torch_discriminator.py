@@ -101,8 +101,6 @@ def test_scores_and_gradients_match(pool_impl):
 
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError):
-        TrajectoryDiscriminator(ModelConfig(d_type="local"))
-    with pytest.raises(NotImplementedError):
         TrajectoryDiscriminator(ModelConfig(batch_norm=True))
     model = TrajectoryDiscriminator(dataclasses.replace(
         ModelConfig(**NARROW), dropout=0.5))
