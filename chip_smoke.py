@@ -100,7 +100,19 @@ Phases, each of which fails the run on any error:
    for their plain versions over scene chunks) and against the CPU on a
    small batch, with launch counts, ms per call, it/s, peak memory and a
    profile of the per-step paths (chiprun_out/profile_serve_pet.txt,
-   profile_train_pet.txt).
+   profile_train_pet.txt);
+10. many: multi-seed sweeps, ``train_many`` (the replicas' weights stacked
+   on a seed axis, every step under torch.func.vmap, K1/K2 taking the seed
+   axis as their replica axis R), the gat preset at full width: each
+   replica of a 4-seed sweep against a 1-seed sweep of its own seed for 2
+   iterations (TF32 off), K1 x4 and K2 x3 an iteration at R = 4; K1 and K2
+   at those R = 4 shapes against their plain versions, timed beside their
+   bounds; seed-iterations per second at N = 1, 2 and 4 seeds in turns
+   beside train()'s step, the busy share (chiprun_out/
+   profile_train_many.txt) and the peak memory of a 4-seed iteration;
+   train_many of 4 seeds on a synthetic split (batch 64, best_k 20, 3
+   buckets) for 20 iterations with its launches, resumed from its files
+   to 30.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -130,6 +142,7 @@ SLEEP_CYCLES = 2_000_000     # ~1 ms of GPU clock: the stream's lead in time_ms
 POOL_ATOL = 1e-4             # kernel vs plain, pooled (see check_kernel)
 BWD_RTOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}  # check_bwd
 SERVE_ATOL = 1e-3            # metres, kernel vs plain pool end to end
+NEAR_TIE_ATOL = 1e-5         # check_kernel(near_ties=True): a near-tie
 # device functions of K1 and K2 (the weight split they share, K1's tile,
 # K2's three passes), K3 and K4 (two), K4's and K6's block-order sum, K5
 # and K6, as a trace names them
@@ -353,11 +366,17 @@ def pool_bound_ms(a, W2, valid, outputs_bytes):
     return _bounds(_valid_pairs(valid), K_, B, passes, 0.0, nbytes)
 
 
-def check_kernel(name, a, u, W2, b2, valid, expect_ties=False):
+def check_kernel(name, a, u, W2, b2, valid, expect_ties=False,
+                 near_ties=False):
     """Kernel vs plain on the card. pooled within POOL_ATOL: float32 sums
     of K=512 products in different orders, values of a few units; cnt
     equal, since ties come from equal inputs that give bit-equal values in
-    both. Only valid rows count (invalid rows are re-masked by callers)."""
+    both. Only valid rows count (invalid rows are re-masked by callers).
+    With ``near_ties`` (inputs taken from training, where a max may lie
+    within rounding of another value) a row whose cnt differs passes if
+    the kernel's count is at least 1 and at most the number of j whose
+    plain value lies within NEAR_TIE_ATOL of the plain max: the two
+    orders of summation resolved a near-tie differently."""
     import torch
     from grouptraj_torch.ops.cuda_pool import pool_core_fwd
     from grouptraj_torch.ops.pooling import pool_core
@@ -367,6 +386,18 @@ def check_kernel(name, a, u, W2, b2, valid, expect_ties=False):
     rows = valid > 0
     err = (pooled - ref)[rows].abs().max().item() if rows.any() else 0.0
     cnt_bad = int((cnt != ref_cnt)[rows].sum())
+    if cnt_bad and near_ties:
+        o = torch.relu(torch.relu(a.unsqueeze(-3) - u.unsqueeze(-2))
+                       @ W2.float()[:, None, None] + b2.float()[:, None, None,
+                                                          None])
+        o = o.masked_fill(~(valid[..., None, :, None] > 0), -1e9)
+        near = ((o - ref.unsqueeze(-2)).abs() <= NEAR_TIE_ATOL).sum(-2)
+        del o
+        odd = (cnt != ref_cnt) & rows[..., None] & ~((cnt >= 1)
+                                                     & (cnt <= near))
+        print(f"kernel {name}: {cnt_bad} cnt entries differ from the plain "
+              f"version's, {cnt_bad - int(odd.sum())} of them at near-ties")
+        cnt_bad = int(odd.sum())
     pad = valid.sum(-1) == 0
     pad_ok = bool((pooled[pad] == 0).all() and (cnt[pad] == 0).all())
     ties = int((ref_cnt[rows] > 1).sum())
@@ -2204,6 +2235,320 @@ def plain_lstm_proj_kernels():
                     lstm_proj_bwd=lstm_proj_bwd_plain)
 
 
+# ----------------------------------------------------------------- many
+
+MANY_SEEDS = (6, 7, 8, 9)    # the sweep's replica seeds (6: the loop's)
+MANY_ITERS = 20              # the sweep's first run, resumed to MANY_RESUME
+MANY_RESUME = 30
+MANY_RATE_ITERS = 10         # timed iterations a run, the rates in turns
+MANY_RTOL = 1e-4             # a replica against its 1-seed sweep, TF32 off
+# train_many's launches per iteration, each at R = the number of seeds
+MANY_PER_ITER = {"pool_core_fwd": 4, "pool_core_bwd": 3}
+
+
+def _noisy(name):
+    """The inter-group GAT's attention vectors: their gradients are
+    rounding noise (the inter-group graph is complete, so the row softmax
+    drops the source half), which each Adam step turns into a move of up
+    to about lr."""
+    return name.startswith("gatencoder.gat_inter.") and name.endswith(".a")
+
+
+class _Recorded:
+    """A K1/K2 wrapper that hands each call's arguments to ``record``
+    first. ``launches`` is the wrapped function's: its body counts through
+    the module's name, which is this object while it stands there."""
+
+    def __init__(self, fn, record):
+        self.fn, self.record = fn, record
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, v: setattr(self.fn, "launches", v))
+
+    def __call__(self, *args, **kw):
+        self.record(self.fn, args)
+        return self.fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def _pool_calls():
+    """Within the block K1's and K2's wrappers record their calls: yields
+    ``(calls, first)``; ``calls`` gets (kind, R, S, N, B) for each call,
+    ``first[(kind, S, B)]`` the cloned arguments of that shape's first."""
+    from grouptraj_torch.ops import cuda_pool
+    fwd, bwd = cuda_pool.pool_core_fwd, cuda_pool.pool_core_bwd
+    calls, first = [], {}
+
+    def record(fn, args):
+        kind = "fwd" if fn is fwd else "bwd"
+        a, W2 = args[0], args[2]
+        R, S, N, _ = a.shape
+        calls.append((kind, R, S, N, W2.shape[-1]))
+        key = (kind, S, W2.shape[-1])
+        if key not in first:
+            first[key] = [t.detach().clone() for t in args]
+
+    with _swapped(cuda_pool, pool_core_fwd=_Recorded(fwd, record),
+                  pool_core_bwd=_Recorded(bwd, record)):
+        yield calls, first
+
+
+def many_phase(rng, smi):
+    """Multi-seed sweeps, ``train_many`` (the replicas' weights stacked on
+    a seed axis, every step under torch.func.vmap, K1/K2 taking the seed
+    axis as their replica axis R), the gat preset at full width:
+
+    (a) each replica of a 4-seed sweep against a 1-seed sweep of its own
+        seed for 2 iterations (float32 no-grad legs, TF32 off): losses and
+        norms within MANY_RTOL of each history's largest entry, weights
+        within lr/10 (the inter-group attention vectors 2 lr an
+        iteration); K1 x4 and K2 x3 an iteration, every launch at R = 4;
+    (b) K1 and K2 at the R = 4 shapes that iteration gave them, against
+        their plain versions, timed beside their bounds;
+    (c) seed-iterations per second of train_iterations_many at N = 1, 2
+        and 4 seeds in turns, beside train()'s step (train_iterations, one
+        state) on the same route ('scan': train_many's); the device-busy
+        share of a 4-seed iteration (chiprun_out/profile_train_many.txt)
+        and its peak memory;
+    (d) train_many of MANY_SEEDS on a synthetic ETH/UCY-format split
+        (batch 64, best_k 20, 3 buckets; dispatches of 10, a checkpoint
+        every 10) for MANY_ITERS iterations with the counts at 0 just
+        before and read just after (K1 at least 4 and K2 exactly 3 an
+        iteration, all at R = 4), then resumed from its files to
+        MANY_RESUME: s<seed>/ files, finite histories, the resume's
+        restore_ts and generator states.
+    Returns the launches of the run in (d)."""
+    import copy
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train import multi as MULTI
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import (
+        init_train_state, stack_states, train_iterations,
+        train_iterations_many, train_state_from_modules,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, tcfg = ModelConfig(), TrainConfig()
+    S, n4 = tcfg.batch_size, len(MANY_SEEDS)
+    data = synthetic_device_data(256, 64, seed=3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, 256, (MANY_RATE_ITERS, 2, S), generator=gen,
+                        device="cuda")
+
+    def states(seeds, tc):
+        return [init_train_state(cfg, tc, device="cuda", generator=torch.
+                                 Generator(device="cuda").manual_seed(s))
+                for s in seeds]
+
+    def gens(seeds):
+        return [torch.Generator(device="cuda").manual_seed(1000 + s)
+                for s in seeds]
+
+    # (a) a 4-seed sweep against 1-seed sweeps, two iterations
+    f32 = dataclasses.replace(tcfg, bf16_nograd=False)
+    seeds = list(MANY_SEEDS)
+    st4 = stack_states(states(seeds, f32), f32)
+    torch.cuda.synchronize()
+    reset_counts()
+    with _pool_calls() as (seen, first):
+        out4 = train_iterations_many(st4, data, idx[:2], cfg, f32,
+                                     gens(seeds))
+    torch.cuda.synchronize()
+    counts = all_counts()
+    want = {k: 2 * v for k, v in MANY_PER_ITER.items()}
+    rs = sorted({r for _, r, *_ in seen})
+    print(f"many: 4-seed sweep, 2 iterations (float32 no-grad legs): "
+          f"launches {json.dumps(counts)}, replica axis R {rs}, shapes "
+          f"{sorted(set(seen))}")
+    if {k: counts[k] for k in want} != want or rs != [n4] or any(
+            counts[k] for k in counts if k not in want):
+        fail(f"many: a 4-seed iteration must launch {MANY_PER_ITER} (x2) "
+             f"at R = {n4} and no LSTM kernel, got {counts} at R {rs}")
+    lr = {"g": f32.g_learning_rate, "d": f32.d_learning_rate}
+    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0}
+    for i, s in enumerate(seeds):
+        st1 = stack_states(states([s], f32), f32)
+        out1 = train_iterations_many(st1, data, idx[:2], cfg, f32,
+                                     gens([s]))
+        for k, ref in out1.items():
+            d = (out4[k][i] - ref[0]).abs().max().item() / max(
+                ref.abs().max().item(), 1e-12)
+            worst["history"] = max(worst["history"], d)
+            if not d <= MANY_RTOL:
+                fail(f"many: seed {s} {k} {out4[k][i].tolist()} against "
+                     f"its 1-seed sweep {ref[0].tolist()}")
+        for part, p4, p1 in (("g", st4.g_params, st1.g_params),
+                             ("d", st4.d_params, st1.d_params)):
+            for name, w in p1.items():
+                d = (p4[name][i] - w[0]).abs().max().item()
+                key, tol = (("noisy", 2 * 2 * lr[part]) if _noisy(name)
+                            else ("weights", lr[part] / 10))
+                worst[key] = max(worst[key], d / lr[part])
+                if not d <= tol:
+                    fail(f"many: seed {s} {part}.{name} differs by {d:.3e} "
+                         f"from its 1-seed sweep (limit {tol:.1e})")
+        del st1
+    print(f"many: each replica against a 1-seed sweep of its seed, 2 "
+          f"iterations: losses and norms worst {worst['history']:.2e} of "
+          f"the history's largest (limit {MANY_RTOL}); weights worst "
+          f"{worst['weights']:.2e} lr (limit 0.1 lr), the inter-group "
+          f"attention vectors {worst['noisy']:.2e} lr (limit 4 lr)")
+
+    # (b) K1 and K2 at the R = 4 shapes of that iteration
+    timed = {}
+    for (kind, S_, B), args in sorted(first.items()):
+        tag = f"R{n4}_S{S_}_N{args[0].shape[2]}_B{B}"
+        a, u, W2, b2, valid = args[:5]
+        if kind == "fwd":
+            err = check_kernel(f"many {tag}", a, u, W2, b2, valid,
+                               near_ties=True)
+            out_bytes = 2 * a[..., :1].numel() * B * 4
+            bound = pool_bound_ms(a, W2, valid, out_bytes)
+            ms = time_ms(lambda: pool_core_fwd(a, u, W2, b2, valid))
+            plain_ms = time_ms(lambda: pool_core(a, u, W2, b2, valid))
+        else:
+            err = check_bwd(f"many {tag}", rng, a, u, W2, b2, valid)
+            pooled, cnt, dpool = args[5:8]
+            bound = bwd_bound_ms(a, W2, valid, pooled, cnt)
+            ms = time_ms(lambda: pool_core_bwd(a, u, W2, b2, valid, pooled,
+                                               cnt, dpool))
+            plain_ms = time_ms(lambda: pool_core_bwd_plain(
+                a, u, W2, b2, valid, pooled, cnt, dpool))
+        timed[(kind, tag)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                  **bound)
+        print(f"many K{1 if kind == 'fwd' else 2} {tag} time: kernel_ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound)} "
+              f"kernel/bound={ms / bound['bound_ms']:.2f}; {smi}")
+    del seen, first, st4, out4
+
+    # (c) rates in turns, a profile and the peak memory of N = 4
+    base = states(seeds, tcfg)
+    ms_it = {}
+    for n in ("train", 1, 2, 4, 4, 2, 1, "train"):
+        if n == "train":
+            run = train_state_from_modules(copy.deepcopy(base[0].g),
+                                           copy.deepcopy(base[0].d), tcfg)
+            step = lambda ix: train_iterations(run, data, ix, cfg, tcfg, gen,
+                                               impl="scan")
+        else:
+            run = stack_states(base[:n], tcfg)
+            g = gens(seeds[:n])
+            step = lambda ix: train_iterations_many(run, data, ix, cfg, tcfg,
+                                                    g)
+        step(idx[:2])                                            # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(idx)
+        torch.cuda.synchronize()
+        ms_it.setdefault(n, []).append(
+            (time.perf_counter() - t0) * 1e3 / MANY_RATE_ITERS)
+        del run, step
+    one = statistics.mean(ms_it["train"])
+    rates = {n: (1 if n == "train" else n) * 1e3 / statistics.mean(v)
+             for n, v in ms_it.items()}
+    print(f"many: seed-iterations per second at S{S}_N64 ('scan', "
+          f"{MANY_RATE_ITERS} iterations a run, the mean of two runs in "
+          f"turns): train() {rates['train']:.2f} it/s ({one:.1f} ms); "
+          + "; ".join(f"N={n} {rates[n]:.2f} ({statistics.mean(ms_it[n]):.1f}"
+                      f" ms an iteration)" for n in (1, 2, 4))
+          + f"; N=4/N=1 = {rates[4] / rates[1]:.2f}x; {smi}")
+    run = stack_states(base, tcfg)
+    g = gens(seeds)
+    train_iterations_many(run, data, idx[:1], cfg, tcfg, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_iterations_many(run, data, idx[:1], cfg, tcfg, g)
+    torch.cuda.synchronize()
+    print(f"many: peak memory of one 4-seed iteration "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_phase(lambda: train_iterations_many(run, data, idx[:1], cfg,
+                                                tcfg, g),
+                  f"4-seed iteration S{S}_N64", "profile_train_many.txt",
+                  statistics.mean(ms_it[4]))
+    del run, base
+
+    # (d) train_many on a synthetic split, with a save and a resume
+    tmp = tempfile.mkdtemp(prefix="grouptraj_many_")
+    saved_env = os.environ.get("GROUPTRAJ_DATA_DIR")
+    os.environ["GROUPTRAJ_DATA_DIR"] = tmp
+    try:
+        write_scene_files(os.path.join(tmp, "synth", "train"), n_files=3,
+                          frames=560, max_peds=57, seed=0)
+        write_scene_files(os.path.join(tmp, "synth", "val"), n_files=1,
+                          frames=200, max_peds=57, seed=1)
+        sweep = dict(dataset_name="synth", batch_size=64, best_k=20,
+                     n_buckets=3, steps_per_dispatch=10, print_every=10,
+                     checkpoint_every=10, num_epochs=0, seed=seeds[0],
+                     output_dir=os.path.join(tmp, "out"),
+                     checkpoint_name="many")
+        launches = None
+        for iters, restore in ((MANY_ITERS, False), (MANY_RESUME, True)):
+            tc = TrainConfig(**sweep, num_iterations=iters,
+                             restore_from_checkpoint=restore)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with _pool_calls() as (seen, _):
+                ckpts = MULTI.train_many(cfg, tc, seeds, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = all_counts()
+            ran = iters - (MANY_ITERS if restore else 0)
+            launches = launches or counts
+            rs = sorted({r for _, r, *_ in seen})
+            print(f"many: train_many of {n4} seeds, {ran} iterations"
+                  f"{' (resumed)' if restore else ''}: launches "
+                  f"{json.dumps(counts)} at R {rs}; {ran * n4 / wall:.2f} "
+                  f"seed-iterations/s over the run ({wall:.2f} s wall, "
+                  f"sweeps and saves included); {smi}")
+            if (counts["pool_core_bwd"] != 3 * ran
+                    or counts["pool_core_fwd"] < 4 * ran or rs != [n4]):
+                fail(f"many: train_many launched {counts} at R {rs}; "
+                     f"expected K2 = {3 * ran}, K1 >= {4 * ran}, R = {n4}")
+            for s in seeds:
+                ck = ckpts[s]
+                hist = ([v for h in ("G_losses", "D_losses", "metrics_val")
+                         for vals in ck[h].values() for v in vals]
+                        + ck["norm_g"] + ck["norm_d"])
+                if not hist or not all(math.isfinite(v) for v in hist):
+                    fail(f"many: seed {s}: a loss, norm or metric is not "
+                         f"finite")
+                if ck["counters"]["t"] != iters or ck["args"]["seed"] != s \
+                        or (restore and ck["restore_ts"] != [MANY_ITERS]):
+                    fail(f"many: seed {s} ended at {ck['counters']} with "
+                         f"restore_ts {ck['restore_ts']}")
+                for suffix in ("_with_model.pt", "_no_model.pt"):
+                    if not os.path.isfile(os.path.join(
+                            tc.output_dir, f"s{s}", "many" + suffix)):
+                        fail(f"many: s{s}/many{suffix} was not written")
+            if not any(max(ckpts[s]["norm_d"]) > 0 for s in seeds):
+                fail("many: no replica's discriminator had a gradient")
+        loaded = CK.load_checkpoint(os.path.join(tc.output_dir,
+                                                 f"s{seeds[0]}",
+                                                 "many_with_model.pt"))
+        if loaded.get(MULTI.RNG_KEY) is None:
+            fail("many: the checkpoint holds no generator state")
+        print(f"many: resumed to t={MANY_RESUME}; last val ade per seed "
+              + json.dumps({s: ckpts[s]["metrics_val"]["ade"][-1:]
+                            for s in seeds})
+              + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+        if saved_env is None:
+            os.environ.pop("GROUPTRAJ_DATA_DIR", None)
+        else:
+            os.environ["GROUPTRAJ_DATA_DIR"] = saved_env
+    return launches, timed, rates
+
+
 # ----------------------------------------------------------------- main
 
 def main():
@@ -2267,6 +2612,7 @@ def main():
     train_launches = train_phase()
     loop_launches = loop_phase(smi.splitlines()[0])
     preset_launches = presets_phase(batches, noises)
+    many_launches, many_timed, _ = many_phase(rng, smi.splitlines()[0])
 
     # launches: every main path, each driven with the counts at 0 just
     # before it and read just after it: serving through the Predictor (scan
@@ -2276,7 +2622,8 @@ def main():
     # and pallas routes (LOOP_ITERS, the fused run with its resume), the
     # per-step pooling model's serving call and PET_ITERS iterations on
     # 'scan' and 'fused', and the other presets' serving calls and
-    # iterations (presets_phase). No
+    # iterations (presets_phase), and train_many's sweep of four seeds
+    # (many_phase, K1/K2 at R = 4). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -2293,7 +2640,11 @@ def main():
              "eval_fused": eval_launches["fused"],
              "eval_pallas": eval_launches["pallas"],
              "loop_fused": loop_launches["fused"],
-             "loop_pallas": loop_launches["pallas"], **preset_launches}
+             "loop_pallas": loop_launches["pallas"], **preset_launches,
+             "train_many": many_launches}
+    # K1/K2 at the R = 4 shapes of a 4-seed training iteration
+    many_shapes = {kind: {tag: t for (k_, tag), t in many_timed.items()
+                          if k_ == kind} for kind in ("fwd", "bwd")}
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               **more):
@@ -2320,12 +2671,14 @@ def main():
         entry("pool_core_fwd", "grouptraj_torch/csrc/pool_core_fwd.cu",
               "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
               timed["S64_N64_B8"],
+              shapes_train_many=many_shapes["fwd"],
               **tc_more(timed["S64_N64_B8"], timed,
                           "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
               "grouptraj/ops/pallas_pool.py:206", bwd_err, "S128_N64_B48",
               bwd_timed["S128_N64_B48"],
               phases=bwd_timed["S128_N64_B48"]["phases"],
+              shapes_train_many=many_shapes["bwd"],
               **tc_more(bwd_timed["S128_N64_B48"], bwd_timed,
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",

@@ -8,7 +8,11 @@
   ``grouptraj_torch/csrc/pool_core_bwd.cu`` (it replaces
   ``pallas_pool.py:_bwd_kernel``);
 - :class:`PoolCore` is the ``torch.autograd.Function`` that joins them, the
-  counterpart of the ``custom_vjp`` around ``pool_core_pallas``.
+  counterpart of the ``custom_vjp`` around ``pool_core_pallas``. Its
+  ``vmap`` rule folds a ``torch.func.vmap`` axis (the seed axis of
+  ``train/multi.py``) into the kernels' replica axis R, as the
+  ``custom_vmap`` rules of ``pallas_pool.py`` do: one K1 launch and one K2
+  launch per call site whatever the number of replicas.
 
 Each source note gives its kernel's bound and design; both kernels take
 their pair tile from ``csrc/pool_core.cuh``, so the backward recomputes the
@@ -216,14 +220,23 @@ class PoolCore(torch.autograd.Function):
     """``pooled, cnt = PoolCore.apply(a, u, W2, b2, valid)``: the pair core
     with its hand-written backward (K1 forward, K2 backward on CUDA tensors;
     the plain versions on CPU tensors). ``cnt`` is not differentiable and
-    ``valid`` gets no gradient."""
+    ``valid`` gets no gradient.
+
+    Under ``torch.func.vmap`` the rule :meth:`vmap` moves each batched
+    argument's vmapped dimension to the front, broadcasts an unbatched one
+    to the batch size (a weight shared by every replica, the scenes' shared
+    ``valid``), merges the two leading axes into R and calls
+    :meth:`apply` once on the merged tensors: autograd records one node, so
+    the backward is one K2 launch with R = batch × R as well."""
 
     @staticmethod
-    def forward(ctx, a, u, W2, b2, valid):
-        pooled, cnt = pool_core_fwd(a, u, W2, b2, valid)
-        ctx.save_for_backward(a, u, W2, b2, valid, pooled, cnt)
-        ctx.mark_non_differentiable(cnt)
-        return pooled, cnt
+    def forward(a, u, W2, b2, valid):
+        return pool_core_fwd(a, u, W2, b2, valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output)
+        ctx.mark_non_differentiable(output[1])
 
     @staticmethod
     @once_differentiable
@@ -234,3 +247,17 @@ class PoolCore(torch.autograd.Function):
                                          dpool.contiguous(),
                                          weight_grads=need_w)
         return da, du, dW2, db2, None
+
+    @staticmethod
+    def vmap(info, in_dims, a, u, W2, b2, valid):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.expand(n, *t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape(-1, *t.shape[2:]).contiguous()
+
+        pooled, cnt = PoolCore.apply(*(fold(t, dim) for t, dim in zip(
+            (a, u, W2, b2, valid), in_dims)))
+        return ((pooled.view(n, -1, *pooled.shape[1:]),
+                 cnt.view(n, -1, *cnt.shape[1:])), (0, 0))

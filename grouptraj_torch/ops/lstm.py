@@ -17,7 +17,11 @@ JAX package. Three routes compute every recurrence, chosen by ``impl``
   it goes, so no ``[T, B, 4H]`` gate slab is ever kept. When no argument
   needs a gradient (``torch.no_grad()``: the best-of-k probe decode, the
   d-step's generator forward, serving) the plain loop runs and nothing is
-  saved.
+  saved. The Functions are written in the ``setup_context`` form with
+  ``generate_vmap_rule``, so they run under ``torch.func.vmap`` (the seed
+  axis of ``train/multi.py``): forward and backward are batched as they
+  stand, and an argument's need for a gradient is read through vmap's
+  wrappers (:func:`_wants_grad`).
 - ``'fused'``: the whole time loop in one kernel launch
   (:mod:`grouptraj_torch.ops.cuda_lstm`: K3 forward, K4 backward, the
   counterpart of ``grouptraj/ops/pallas_fused.py``). :func:`lstm_scan`
@@ -82,8 +86,17 @@ def _gates_bwd(z, c_prev, dh, dc_in, H):
     return dz, dc * f, o * tc
 
 
+def _requires_grad(t: torch.Tensor) -> bool:
+    """``t.requires_grad``, read on the tensor under vmap's batching
+    wrappers (a wrapper itself reports False)."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.requires_grad
+
+
 def _wants_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return torch.is_grad_enabled() and any(_requires_grad(t)
+                                           for t in tensors)
 
 
 # ------------------------------------------------------------------ encoder
@@ -99,33 +112,48 @@ def _encoder_loop(w_comp, b_comp, w_hh, xs, keep):
     return h, c
 
 
+def _stacked(keep):
+    """The per-step (h, c) a forward kept -> (hs, cs) ``[T, B, H]``."""
+    return (torch.stack([h for h, _ in keep]),
+            torch.stack([c for _, c in keep]))
+
+
+# Each Function returns the states its backward needs as extra outputs
+# (hs, cs), marked non-differentiable: the setup_context form sees only
+# inputs and outputs. The backwards accumulate out of place, so an
+# accumulator that starts unbatched under vmap takes batched terms.
+
 class _EncoderRecurrence(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, w_comp, b_comp, w_hh, xs):
+    def forward(w_comp, b_comp, w_hh, xs):
         keep = []
         hT, cT = _encoder_loop(w_comp, b_comp, w_hh, xs, keep)
-        ctx.save_for_backward(w_comp, b_comp, w_hh, xs,
-                              *[h for h, _ in keep], *[c for _, c in keep])
-        return hT, cT
+        return (hT, cT, *_stacked(keep))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output[2:])
+        ctx.mark_non_differentiable(*output[2:])
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dh, dc):
-        w_comp, b_comp, w_hh, xs, *states = ctx.saved_tensors
+    def backward(ctx, dh, dc, _dhs, _dcs):
+        w_comp, b_comp, w_hh, xs, hs, cs = ctx.saved_tensors
         T, H = xs.shape[0], w_hh.shape[0]
-        hs, cs = states[:T], states[T:]
         dwc, dwh = torch.zeros_like(w_comp), torch.zeros_like(w_hh)
         db = torch.zeros_like(b_comp)
-        dxs = torch.empty_like(xs)
+        dxs = [None] * T
         for t in reversed(range(T)):
             z = xs[t] @ w_comp + b_comp + hs[t] @ w_hh    # recompute
             dz, dc, _ = _gates_bwd(z, cs[t], dh, dc, H)
             dh = dz @ w_hh.t()
-            dwh += hs[t].t() @ dz
-            dwc += xs[t].t() @ dz
-            db += dz.sum(dim=0)
+            dwh = dwh + hs[t].t() @ dz
+            dwc = dwc + xs[t].t() @ dz
+            db = db + dz.sum(dim=0)
             dxs[t] = dz @ w_comp.t()
-        return dwc, db, dwh, dxs
+        return dwc, db, dwh, torch.stack(dxs)
 
 
 def encoder_recurrence(w_comp: torch.Tensor, b_comp: torch.Tensor,
@@ -134,7 +162,7 @@ def encoder_recurrence(w_comp: torch.Tensor, b_comp: torch.Tensor,
     """Encoder leg with the folded embedding: ``z_t = x_t @ w_comp + b_comp
     + h @ w_hh`` from zero state over raw xs [T, B, 2] -> (hT, cT)."""
     if _wants_grad(w_comp, b_comp, w_hh, xs):
-        return _EncoderRecurrence.apply(w_comp, b_comp, w_hh, xs)
+        return _EncoderRecurrence.apply(w_comp, b_comp, w_hh, xs)[:2]
     return _encoder_loop(w_comp, b_comp, w_hh, xs, None)
 
 
@@ -148,10 +176,16 @@ def _first_step(w_r, b1c, w_hh, w_p, b_p, x0, h0):
 
 
 class _DecoderFirstStep(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, w_r, b1c, w_hh, w_p, b_p, x0, h0):
-        ctx.save_for_backward(w_r, b1c, w_hh, w_p, x0, h0)
+    def forward(w_r, b1c, w_hh, w_p, b_p, x0, h0):
         return _first_step(w_r, b1c, w_hh, w_p, b_p, x0, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w_r, b1c, w_hh, w_p, _, x0, h0 = inputs
+        ctx.save_for_backward(w_r, b1c, w_hh, w_p, x0, h0)
 
     @staticmethod
     @once_differentiable
@@ -190,21 +224,25 @@ def _proj_loop(w_eff, b_eff, w_p, b_p, h, c, T, keep):
 
 
 class _DecoderProjRecurrence(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, w_eff, b_eff, w_p, b_p, h1, c1, T):
+    def forward(w_eff, b_eff, w_p, b_p, h1, c1, T):
         keep = []
         ys = _proj_loop(w_eff, b_eff, w_p, b_p, h1, c1, T, keep)
-        ctx.save_for_backward(w_eff, b_eff, w_p,
-                              *[h for h, _ in keep], *[c for _, c in keep])
-        ctx.T = T
-        return ys
+        return (ys, *_stacked(keep))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3], *output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.T = inputs[-1]
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dys):
-        w_eff, b_eff, w_p, *states = ctx.saved_tensors
+    def backward(ctx, dys, _dhs, _dcs):
+        w_eff, b_eff, w_p, hs, cs = ctx.saved_tensors
         T, H = ctx.T, w_eff.shape[0]
-        hs, cs = states[:T], states[T:]
         dw, db = torch.zeros_like(w_eff), torch.zeros_like(b_eff)
         dwp = torch.zeros_like(w_p)
         dbp = dys.new_zeros(w_p.shape[1])
@@ -213,11 +251,11 @@ class _DecoderProjRecurrence(torch.autograd.Function):
             z = hs[t] @ w_eff + b_eff                     # recompute
             dh = dh + dys[t] @ w_p.t()
             dz, dc, h2 = _gates_bwd(z, cs[t], dh, dc, H)
-            dwp += h2.t() @ dys[t]
-            dbp += dys[t].sum(dim=0)
+            dwp = dwp + h2.t() @ dys[t]
+            dbp = dbp + dys[t].sum(dim=0)
             dh = dz @ w_eff.t()
-            dw += hs[t].t() @ dz
-            db += dz.sum(dim=0)
+            dw = dw + hs[t].t() @ dz
+            db = db + dz.sum(dim=0)
         return dw, db, dwp, dbp, dh, dc, None
 
 
@@ -226,7 +264,8 @@ def decoder_proj_recurrence(w_eff, b_eff, w_p, b_p, h1, c1, T: int
     """T steps of the folded decoder (``gates = h @ w_eff + b_eff``) with
     hidden2pos fused into each step -> ys [T, B, 2]."""
     if _wants_grad(w_eff, b_eff, w_p, b_p, h1, c1):
-        return _DecoderProjRecurrence.apply(w_eff, b_eff, w_p, b_p, h1, c1, T)
+        return _DecoderProjRecurrence.apply(w_eff, b_eff, w_p, b_p, h1, c1,
+                                            T)[0]
     return _proj_loop(w_eff, b_eff, w_p, b_p, h1, c1, T, None)
 
 
@@ -244,29 +283,33 @@ def _recurrence_loop(w_hh, gx, h, c, keep):
 
 
 class _LstmRecurrence(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, w_hh, gx, h0, c0):
+    def forward(w_hh, gx, h0, c0):
         keep = []
         out = _recurrence_loop(w_hh, gx, h0, c0, keep)
-        ctx.save_for_backward(w_hh, gx, *[h for h, _ in keep],
-                              *[c for _, c in keep])
-        return out
+        return (*out, *_stacked(keep))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1], *output[3:])
+        ctx.mark_non_differentiable(*output[3:])
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dys, dh, dc):
-        w_hh, gx, *states = ctx.saved_tensors
+    def backward(ctx, dys, dh, dc, _dhs, _dcs):
+        w_hh, gx, hs, cs = ctx.saved_tensors
         T, H = gx.shape[0], w_hh.shape[0]
-        hs, cs = states[:T], states[T:]
         dw = torch.zeros_like(w_hh)
-        dgx = torch.empty_like(gx)
+        dgx = [None] * T
         for t in reversed(range(T)):
             z = gx[t] + hs[t] @ w_hh                      # recompute
             dz, dc, _ = _gates_bwd(z, cs[t], dh + dys[t], dc, H)
             dh = dz @ w_hh.t()
-            dw += hs[t].t() @ dz
+            dw = dw + hs[t].t() @ dz
             dgx[t] = dz
-        return dw, dgx, dh, dc
+        return dw, torch.stack(dgx), dh, dc
 
 
 def lstm_recurrence(w_hh: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor,
@@ -276,7 +319,7 @@ def lstm_recurrence(w_hh: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor,
     route: gx [T, B, 4H] already holds ``x_t @ W_ih + b`` ->
     (ys [T, B, H], hT, cT)."""
     if _wants_grad(w_hh, gx, h0, c0):
-        return _LstmRecurrence.apply(w_hh, gx, h0, c0)
+        return _LstmRecurrence.apply(w_hh, gx, h0, c0)[:3]
     return _recurrence_loop(w_hh, gx, h0, c0, None)
 
 

@@ -32,6 +32,7 @@ reference's normalisers, and :func:`check_accuracy`, the loader variant.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -205,38 +206,55 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     the draws from ``generator``."""
     _check_trainable(cfg)
     impl = select_impl(cfg, tcfg) if impl is None else impl
-    b = batch
+    kw = d_draws(cfg, *batch["valid"].shape, generator, batch["valid"].device,
+                 noise, label)
+    data_loss = d_loss(state.g, state.d, batch, cfg, tcfg, impl=impl, **kw)
+    grads = torch.autograd.grad(data_loss, list(state.d.parameters()))
+    data_loss = data_loss.detach()
+    return {"D_data_loss": data_loss, "D_total_loss": data_loss}, grads
+
+
+def d_draws(cfg: ModelConfig, S: int, N: int,
+            generator: Optional[torch.Generator], device,
+            noise: Optional[torch.Tensor] = None, label: Label = None
+            ) -> dict:
+    """A d-step's draws, in the order a step takes them from ``generator``
+    (the sample noise ``[S, N, nd]``, then the label-smoothing scalar);
+    an injected value is kept and draws nothing."""
+    if noise is None and cfg.noise_first_dim:
+        noise = sample_noises(cfg, 1, S, N, generator, device)[0]
+    return dict(noise=noise, label=_label(label, generator, device))
+
+
+def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
+           cfg: ModelConfig, tcfg: TrainConfig,
+           noise: Optional[torch.Tensor], label: Union[float, torch.Tensor],
+           impl: str) -> torch.Tensor:
+    """The d-step's loss from its draws (:func:`d_draws`); draws nothing
+    itself, so it runs under ``torch.func.vmap``."""
     S = b["valid"].shape[0]
-    dev = b["valid"].device
     with torch.no_grad():
         # no gradient flows through the generator here; with bf16_nograd
         # the decode leg runs in bfloat16 (the context stays float32: it
         # feeds the pool kernel; the decode is where the rows are) on the
         # same float32-drawn noise
-        ctx = state.g.generator_context(b["obs"], b["obs_rel"], b["group"],
-                                        b["valid"], impl)
-        if noise is None and cfg.noise_first_dim:
-            noise = sample_noises(cfg, 1, *b["valid"].shape, generator,
-                                  dev)[0]
+        ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"],
+                                  b["valid"], impl)
         at = dict(obs=b["obs"], group_end=b["group"])
         if tcfg.bf16_nograd:
-            pred_rel_fake = state.g.generator_sample(
+            pred_rel_fake = g.generator_sample(
                 ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"],
                 user_noise=noise, impl=impl, **at).float()
         else:
-            pred_rel_fake = state.g.generator_sample(
+            pred_rel_fake = g.generator_sample(
                 ctx, b["obs_rel"], b["valid"], user_noise=noise, impl=impl,
                 **at)
     tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
     # real and fake scored in ONE stacked forward: scenes are independent
     # rows, so this halves the discriminator's sequential depth
-    scores = state.d(torch.cat([tr, tf], dim=0), torch.cat([trr, tfr], dim=0),
-                     torch.cat([b["valid"], b["valid"]], dim=0), impl)
-    data_loss = L.gan_d_loss(scores[:S], scores[S:],
-                             _label(label, generator, dev), b["valid"])
-    grads = torch.autograd.grad(data_loss, list(state.d.parameters()))
-    data_loss = data_loss.detach()
-    return {"D_data_loss": data_loss, "D_total_loss": data_loss}, grads
+    scores = d(torch.cat([tr, tf], dim=0), torch.cat([trr, tfr], dim=0),
+               torch.cat([b["valid"], b["valid"]], dim=0), impl)
+    return L.gan_d_loss(scores[:S], scores[S:], label, b["valid"])
 
 
 def g_step(state: TrainState, batch: Batch, cfg: ModelConfig,
@@ -266,7 +284,39 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     """The g-step's losses (best-of-k variety + adversarial) and the
     gradient of each of G's parameters (in ``state.g.parameters()`` order),
     nothing updated. ``noises`` ``[best_k, S, N, noise_dim]`` and ``label``
-    replace the draws from ``generator``.
+    replace the draws from ``generator``. The losses are :func:`g_loss`'s.
+    """
+    _check_trainable(cfg)
+    impl = select_impl(cfg, tcfg) if impl is None else impl
+    kw = g_draws(cfg, tcfg, *batch["valid"].shape, generator,
+                 batch["valid"].device, noises, label)
+    variety, adv, total = g_loss(state.g, state.d, batch, cfg, tcfg,
+                                 impl=impl, **kw)
+    # gradients with respect to G only: D's parameters are constants here
+    # and their .grad is never touched
+    grads = torch.autograd.grad(total, list(state.g.parameters()))
+    return {"G_l2_loss_rel": variety.detach(),
+            "G_discriminator_loss": adv.detach(),
+            "G_total_loss": total.detach()}, grads
+
+
+def g_draws(cfg: ModelConfig, tcfg: TrainConfig, S: int, N: int,
+            generator: Optional[torch.Generator], device,
+            noises: Optional[torch.Tensor] = None, label: Label = None
+            ) -> dict:
+    """A g-step's draws in a step's order: the best-of-k noises
+    ``[best_k, S, N, nd]``, then the label-smoothing scalar."""
+    if noises is None and cfg.noise_first_dim:
+        noises = sample_noises(cfg, tcfg.best_k, S, N, generator, device)
+    return dict(noises=noises, label=_label(label, generator, device))
+
+
+def g_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
+           cfg: ModelConfig, tcfg: TrainConfig,
+           noises: Optional[torch.Tensor], label: Union[float, torch.Tensor],
+           impl: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The g-step's (variety, adversarial, total) losses from its draws
+    (:func:`g_draws`); draws nothing, so it runs under ``torch.func.vmap``.
 
     Sparse path (``tcfg.sparse_best_k``): the variety min only propagates
     through the per-scene ARGMIN sample and the adversarial term through
@@ -277,9 +327,6 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     dense path decodes all k with grad; it is taken whenever the decoder
     re-pools at every step (``pool_every_timestep``), as in the JAX
     package."""
-    _check_trainable(cfg)
-    impl = select_impl(cfg, tcfg) if impl is None else impl
-    b, g = batch, state.g
     k = tcfg.best_k
     S, N = b["valid"].shape
     dev = b["valid"].device
@@ -289,8 +336,6 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
 
     ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"], b["valid"],
                               impl)
-    if noises is None and cfg.noise_first_dim:
-        noises = sample_noises(cfg, k, S, N, generator, dev)
     if sparse:
         with torch.no_grad():
             if tcfg.bf16_nograd:
@@ -327,16 +372,8 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
             else ctx.new_zeros(())
         pred_last = preds[-1]
     _, _, tf, tfr = _trajs(b, pred_last)
-    adv = L.gan_g_loss(state.d(tf, tfr, b["valid"], impl),
-                       _label(label, generator, dev), b["valid"])
-    total = variety + adv
-
-    # gradients with respect to G only: D's parameters are constants here
-    # and their .grad is never touched
-    grads = torch.autograd.grad(total, list(g.parameters()))
-    return {"G_l2_loss_rel": variety.detach(),
-            "G_discriminator_loss": adv.detach(),
-            "G_total_loss": total.detach()}, grads
+    adv = L.gan_g_loss(d(tf, tfr, b["valid"], impl), label, b["valid"])
+    return variety, adv, variety + adv
 
 
 def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
@@ -389,45 +426,53 @@ def make_check_accuracy_step(cfg: ModelConfig, impl: str = "scan"
              generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None,
              label: Label = None) -> Dict[str, torch.Tensor]:
-        b = batch
-        valid = b["valid"]
-        linear = (1.0 - b["non_linear"]) * valid
-        non_linear = b["non_linear"] * valid
-        pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
-        pred_rel_fake = state.g.generator_forward(
-            b["obs"], b["obs_rel"], b["group"], valid, generator, noise,
-            impl)
-        pred_abs_fake = relative_to_abs(pred_rel_fake, b["obs"][:, :, -1, :])
-        tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
-        scores_fake = state.d(tf, tfr, valid, impl)
-        scores_real = state.d(tr, trr, valid, impl)
-        last, gt_last = pred_abs_fake[:, :, -1], b["pred"][:, :, -1]
-        return {
-            "d_loss": L.gan_d_loss(scores_real, scores_fake,
-                                   _label(label, generator, valid.device),
-                                   valid),
-            "g_l2_loss_abs": L.l2_loss(pred_abs_fake, b["pred"],
-                                       pred_loss_mask, "sum"),
-            "g_l2_loss_rel": L.l2_loss(pred_rel_fake, b["pred_rel"],
-                                       pred_loss_mask, "sum"),
-            "disp_error": L.displacement_error(pred_abs_fake, b["pred"],
-                                               valid),
-            "disp_error_l": L.displacement_error(pred_abs_fake, b["pred"],
-                                                 linear),
-            "disp_error_nl": L.displacement_error(pred_abs_fake, b["pred"],
-                                                  non_linear),
-            "f_disp_error": L.final_displacement_error(last, gt_last, valid),
-            "f_disp_error_l": L.final_displacement_error(last, gt_last,
-                                                         linear),
-            "f_disp_error_nl": L.final_displacement_error(last, gt_last,
-                                                          non_linear),
-            "loss_mask_sum": pred_loss_mask.sum(),
-            "total_traj": valid.sum(),
-            "total_traj_l": linear.sum(),
-            "total_traj_nl": non_linear.sum(),
-        }
+        kw = d_draws(cfg, *batch["valid"].shape, generator,
+                     batch["valid"].device, noise, label)
+        return accuracy_sums(state.g, state.d, batch, cfg, impl=impl, **kw)
 
     return step
+
+
+@torch.no_grad()
+def accuracy_sums(g: TrajectoryGenerator, d: TrajectoryDiscriminator,
+                  b: Batch, cfg: ModelConfig,
+                  noise: Optional[torch.Tensor],
+                  label: Union[float, torch.Tensor], impl: str
+                  ) -> Dict[str, torch.Tensor]:
+    """One batch's raw metric sums from its draws (the noise, then the
+    label: a d-step's, :func:`d_draws`); draws nothing, so it runs under
+    ``torch.func.vmap``."""
+    valid = b["valid"]
+    linear = (1.0 - b["non_linear"]) * valid
+    non_linear = b["non_linear"] * valid
+    pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
+    pred_rel_fake = g.generator_forward(b["obs"], b["obs_rel"], b["group"],
+                                        valid, None, noise, impl)
+    pred_abs_fake = relative_to_abs(pred_rel_fake, b["obs"][:, :, -1, :])
+    tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
+    scores_fake = d(tf, tfr, valid, impl)
+    scores_real = d(tr, trr, valid, impl)
+    last, gt_last = pred_abs_fake[:, :, -1], b["pred"][:, :, -1]
+    return {
+        "d_loss": L.gan_d_loss(scores_real, scores_fake, label, valid),
+        "g_l2_loss_abs": L.l2_loss(pred_abs_fake, b["pred"], pred_loss_mask,
+                                   "sum"),
+        "g_l2_loss_rel": L.l2_loss(pred_rel_fake, b["pred_rel"],
+                                   pred_loss_mask, "sum"),
+        "disp_error": L.displacement_error(pred_abs_fake, b["pred"], valid),
+        "disp_error_l": L.displacement_error(pred_abs_fake, b["pred"],
+                                             linear),
+        "disp_error_nl": L.displacement_error(pred_abs_fake, b["pred"],
+                                              non_linear),
+        "f_disp_error": L.final_displacement_error(last, gt_last, valid),
+        "f_disp_error_l": L.final_displacement_error(last, gt_last, linear),
+        "f_disp_error_nl": L.final_displacement_error(last, gt_last,
+                                                      non_linear),
+        "loss_mask_sum": pred_loss_mask.sum(),
+        "total_traj": valid.sum(),
+        "total_traj_l": linear.sum(),
+        "total_traj_nl": non_linear.sum(),
+    }
 
 
 def make_check_accuracy_sweep(cfg: ModelConfig, impl: str = "scan"
@@ -516,3 +561,244 @@ def check_accuracy(args, loader, state: TrainState, step_fn: Callable,
             break
     return summarize_check_accuracy(read_sums(acc), n_batches,
                                     loader.dense.pred_len)
+
+
+# ------------------------------------------------- seed-stacked replicas
+
+@dataclasses.dataclass
+class StackedState:
+    """N replicas' TrainStates as one (``train/multi.py``): every
+    parameter, Adam moment and EMA tensor carries a leading seed axis
+    ``[N, ...]``. ``g`` and ``d`` hold the models' structure on the
+    ``meta`` device; the steps run them by ``torch.func.functional_call``
+    on one replica's slice under ``torch.func.vmap``. One Adam over the
+    stacked leaves is N per-seed Adams: its update is elementwise and all
+    seeds share the step count."""
+    g: TrajectoryGenerator
+    d: TrajectoryDiscriminator
+    g_params: Dict[str, torch.Tensor]
+    d_params: Dict[str, torch.Tensor]
+    g_opt: torch.optim.Optimizer
+    d_opt: torch.optim.Optimizer
+    ema_g: Optional[Dict[str, torch.Tensor]] = None
+
+
+class _Replica(nn.Module):
+    """One replica's G and D under one root, so ``functional_call`` swaps
+    both in from one flat dict; ``forward`` runs ``fn(g, d, *args)``."""
+
+    def __init__(self, g: nn.Module, d: nn.Module):
+        super().__init__()
+        self.g, self.d = g, d
+
+    def forward(self, fn: Callable, *args):
+        return fn(self.g, self.d, *args)
+
+
+def _stack_adam(opts: Sequence[torch.optim.Optimizer],
+                modules: Sequence[nn.Module],
+                leaves: Dict[str, torch.Tensor], lr: float
+                ) -> torch.optim.Optimizer:
+    opt = torch.optim.Adam(list(leaves.values()), lr=lr)
+    named = [dict(m.named_parameters()) for m in modules]
+    for name, leaf in leaves.items():
+        states = [o.state.get(p[name]) for o, p in zip(opts, named)]
+        if not any(states):
+            continue
+        steps = {float(s["step"]) if s else None for s in states}
+        if len(steps) != 1:
+            raise ValueError(f"{name}: the replicas' Adam states are at "
+                             f"different steps {sorted(map(str, steps))}")
+        opt.state[leaf] = {
+            "step": states[0]["step"].clone(),
+            "exp_avg": torch.stack([s["exp_avg"] for s in states]),
+            "exp_avg_sq": torch.stack([s["exp_avg_sq"] for s in states])}
+    return opt
+
+
+def stack_states(states: Sequence[TrainState], tcfg: TrainConfig
+                 ) -> StackedState:
+    """TrainStates of one configuration -> one :class:`StackedState`
+    (weights, Adam moments and EMA stacked in the given order)."""
+    gs, ds = [s.g for s in states], [s.d for s in states]
+    g_params, _ = torch.func.stack_module_state(gs)
+    d_params, _ = torch.func.stack_module_state(ds)
+    ema = None
+    if all(s.ema_g is not None for s in states):
+        ema = {k: torch.stack([s.ema_g[k] for s in states])
+               for k in states[0].ema_g}
+    return StackedState(
+        copy.deepcopy(gs[0]).to("meta"), copy.deepcopy(ds[0]).to("meta"),
+        g_params, d_params,
+        _stack_adam([s.g_opt for s in states], gs, g_params,
+                    tcfg.g_learning_rate),
+        _stack_adam([s.d_opt for s in states], ds, d_params,
+                    tcfg.d_learning_rate), ema)
+
+
+def unstack_state(st: StackedState, i: int, tcfg: TrainConfig,
+                  device: Union[str, torch.device]) -> TrainState:
+    """Replica ``i`` of ``st`` as a TrainState of its own on ``device``:
+    copies of its weights, Adam moments and EMA."""
+    dev = torch.device(device)
+    mods = []
+    for base, params in ((st.g, st.g_params), (st.d, st.d_params)):
+        m = copy.deepcopy(base).to_empty(device=dev)
+        m.load_state_dict({k: v[i].detach() for k, v in params.items()})
+        mods.append(m)
+    state = train_state_from_modules(*mods, tcfg)
+    for opt, stacked, m, params in ((state.g_opt, st.g_opt, mods[0],
+                                     st.g_params),
+                                    (state.d_opt, st.d_opt, mods[1],
+                                     st.d_params)):
+        for name, p in m.named_parameters():
+            s = stacked.state.get(params[name])
+            if s:
+                opt.state[p] = {"step": s["step"].clone(),
+                                "exp_avg": s["exp_avg"][i].to(dev),
+                                "exp_avg_sq": s["exp_avg_sq"][i].to(dev)}
+    if st.ema_g is not None:
+        state.ema_g = {k: v[i].to(dev, copy=True) for k, v in st.ema_g.items()}
+    return state
+
+
+def replica_map(st: StackedState, fn: Callable, *args) -> object:
+    """``fn(g, d, *args)`` for every replica at once: ``torch.func.vmap``
+    over the seed axis of the weights and of every tensor in ``args``
+    (each ``[N, ...]``); None and non-tensor arguments are shared. ``fn``
+    must draw nothing."""
+    root = _Replica(st.g, st.d)
+
+    def one(gp, dp, *a):
+        params = {**{"g." + k: v for k, v in gp.items()},
+                  **{"d." + k: v for k, v in dp.items()}}
+        return torch.func.functional_call(root, params, (fn, *a))
+
+    dims = tuple(0 if isinstance(a, torch.Tensor) else None for a in args)
+    return torch.func.vmap(one, in_dims=(0, 0, *dims))(
+        st.g_params, st.d_params, *args)
+
+
+def _apply_many(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
+                grads: Sequence[torch.Tensor], clip: float) -> torch.Tensor:
+    """:func:`_apply` per replica: each seed's global norm clips its own
+    stacked gradients, then one Adam step. -> the norms ``[N]``."""
+    norms = torch.sqrt(sum((g * g).reshape(g.shape[0], -1).sum(dim=1)
+                           for g in grads))
+    for p, g in zip(params, grads):
+        p.grad, = clip_by_global_norm(
+            [g], norms.view(-1, *([1] * (g.dim() - 1))), clip)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return norms
+
+
+def _stack_draws(per_seed: Sequence[dict], device) -> dict:
+    """One draw dict per seed -> one dict of ``[N, ...]`` float32
+    tensors on ``device`` (None stays None)."""
+    out = {}
+    for k in per_seed[0]:
+        vals = [d[k] for d in per_seed]
+        out[k] = None if vals[0] is None else torch.stack([
+            torch.as_tensor(v, dtype=torch.float32, device=device)
+            for v in vals])
+    return out
+
+
+def d_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
+                tcfg: TrainConfig, noise: Optional[torch.Tensor],
+                label: torch.Tensor, impl: str) -> Dict[str, torch.Tensor]:
+    """:func:`d_step` for every replica on one shared batch: ``noise``
+    ``[N, S, N, nd]`` (or None) and ``label`` ``[N]`` are the replicas'
+    draws. The forward runs under vmap; the gradient of the sum of the
+    replicas' losses is each replica's own (they share no parameter)."""
+    loss = replica_map(st, lambda g, d, z, y: d_loss(
+        g, d, batch, cfg, tcfg, z, y, impl), noise, label)
+    params = list(st.d_params.values())
+    grads = torch.autograd.grad(loss.sum(), params)
+    loss = loss.detach()
+    return {"D_data_loss": loss, "D_total_loss": loss,
+            "norm_d": _apply_many(st.d_opt, params, grads,
+                                  tcfg.clipping_threshold_d)}
+
+
+def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
+                tcfg: TrainConfig, noises: Optional[torch.Tensor],
+                label: torch.Tensor, impl: str) -> Dict[str, torch.Tensor]:
+    """:func:`g_step` for every replica on one shared batch (``noises``
+    ``[N, best_k, S, N, nd]``, ``label`` ``[N]``), the EMA per replica."""
+    variety, adv, total = replica_map(st, lambda g, d, z, y: g_loss(
+        g, d, batch, cfg, tcfg, z, y, impl), noises, label)
+    params = list(st.g_params.values())
+    grads = torch.autograd.grad(total.sum(), params)
+    losses = {"G_l2_loss_rel": variety.detach(),
+              "G_discriminator_loss": adv.detach(),
+              "G_total_loss": total.detach(),
+              "norm_g": _apply_many(st.g_opt, params, grads,
+                                    tcfg.clipping_threshold_g)}
+    if st.ema_g is not None and tcfg.g_ema_decay > 0:
+        decay = tcfg.g_ema_decay
+        with torch.no_grad():
+            for name, p in st.g_params.items():
+                st.ema_g[name].mul_(decay).add_(p, alpha=1.0 - decay)
+    return losses
+
+
+def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
+                          idx: torch.Tensor, cfg: ModelConfig,
+                          tcfg: TrainConfig,
+                          generators: Sequence[torch.Generator],
+                          draws: Optional[Sequence[Sequence[dict]]] = None,
+                          impl: str = "scan") -> Dict[str, torch.Tensor]:
+    """:func:`train_iterations` for every replica on one shared index
+    schedule ``idx`` ``[iterations, d_steps + g_steps, S]``. Replica i
+    draws from ``generators[i]`` in a step's order, or takes
+    ``draws[i][it]`` (the per-iteration dicts of :func:`train_iterations`).
+    Returns every loss and norm stacked ``[N, iterations]``."""
+    dev = data["valid"].device
+    history: List[Dict[str, torch.Tensor]] = []
+    for it, bidx in enumerate(idx):
+        losses: Dict[str, torch.Tensor] = {}
+        for j in range(tcfg.d_steps + tcfg.g_steps):
+            kind = "d" if j < tcfg.d_steps else "g"
+            b = gather_batch(data, bidx[j], cfg.obs_len)
+            S, N = b["valid"].shape
+            j_kind = j if kind == "d" else j - tcfg.d_steps
+            per_seed = []
+            for i, gen in enumerate(generators):
+                kw = draws[i][it][kind][j_kind] if draws is not None else {}
+                per_seed.append(
+                    d_draws(cfg, S, N, gen, dev, **kw) if kind == "d"
+                    else g_draws(cfg, tcfg, S, N, gen, dev, **kw))
+            step = d_step_many if kind == "d" else g_step_many
+            losses.update(step(st, b, cfg, tcfg, impl=impl,
+                               **_stack_draws(per_seed, dev)))
+        history.append(losses)
+    return {k: torch.stack([h[k] for h in history], dim=1)
+            for k in history[0]}
+
+
+def check_accuracy_sweep_many(st: StackedState, data: Dict[str, torch.Tensor],
+                              idx: torch.Tensor, cfg: ModelConfig,
+                              generators: Sequence[torch.Generator],
+                              draws: Optional[Sequence[SweepDraws]] = None,
+                              impl: str = "scan"
+                              ) -> Dict[str, torch.Tensor]:
+    """:func:`make_check_accuracy_sweep`'s pass for every replica: the raw
+    sums ``[N]`` each, replica i's draws from ``generators[i]`` or
+    ``draws[i]``."""
+    dev = data["valid"].device
+    S, N = idx.shape[1], data["valid"].shape[1]
+    acc = None
+    for bi, bidx in enumerate(idx):
+        per_seed = []
+        for i, gen in enumerate(generators):
+            noise, label = (draws[i](bi, S, N) if draws is not None
+                            else (None, None))
+            per_seed.append(d_draws(cfg, S, N, gen, dev, noise, label))
+        kw = _stack_draws(per_seed, dev)
+        b = gather_batch(data, bidx, cfg.obs_len)
+        out = replica_map(st, lambda g, d, z, y: accuracy_sums(
+            g, d, b, cfg, z, y, impl), kw["noise"], kw["label"])
+        acc = out if acc is None else {k: acc[k] + v for k, v in out.items()}
+    return acc

@@ -140,7 +140,8 @@ NEW_MODULES = ("grouptraj_torch.data.reader", "grouptraj_torch.data._native",
                "grouptraj_torch.eval.evaluate_model",
                "grouptraj_torch.ops.gcn", "grouptraj_torch.ops.gat",
                "grouptraj_torch.models.modules", "grouptraj_torch.train.loop",
-               "grouptraj_torch.train.cli")
+               "grouptraj_torch.train.cli", "grouptraj_torch.train.multi",
+               "grouptraj_torch.train.cli_many")
 
 
 def test_port_imports_no_jax():

@@ -15,7 +15,9 @@ checkpoint reloads with the run's Adam state bit for bit; K1 and K2 at the
 per-step decoder's best-of-20 shape [1280, 64, 512, 8] against their plain
 versions, the ``pool_every_timestep`` decoder launching K1 on every decode
 step and K2 on every step of its backward, and a ``train()`` of the
-``sgan-p`` preset with ``pool_every_timestep`` through a save and a resume.
+``sgan-p`` preset with ``pool_every_timestep`` through a save and a resume;
+K1 and K2 through PoolCore's vmap rule at R = 4 against per-replica plain
+versions, and a 2-seed ``train_many`` through a save and a resume.
 Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
@@ -718,3 +720,133 @@ def test_sgan_p_per_step_training_loop_saves_and_reloads(cuda, tmp_path,
     ckpt = train(cfg, dataclasses.replace(tcfg, num_iterations=6),
                  device=cuda)
     assert ckpt["counters"]["t"] == 6 and ckpt["restore_ts"]
+
+
+# ------------------------------------------- multi-seed sweeps (train_many)
+
+@pytest.mark.parametrize("S,N,B", [(64, 64, 8), (32, 40, 48)])
+def test_pool_vmap_rule_at_r4_matches_plain(cuda, S, N, B):
+    """PoolCore under torch.func.vmap over 4 replicas (b2 and valid shared)
+    launches K1 once and K2 once at R = 4; per replica, pooled matches the
+    plain version (atol 1e-4, cnt exact, valid rows only) and the
+    gradients match the plain backward given the kernel's own selection
+    (K2 called on the merged R = 4 tensors with ``debug``)."""
+    from grouptraj_torch.ops.cuda_pool import (
+        PoolCore, pool_core_bwd, pool_core_fwd,
+    )
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    n = 4
+    a, u, W2, b2, valid = _inputs(cuda, n, S, N, B, seed=S + B)
+    b2, valid = b2[0], valid[0]
+    leaves = [t.clone().requires_grad_() for t in (a, u, W2, b2)]
+
+    def one(a_, u_, W2_):
+        p, c = PoolCore.apply(a_[None], u_[None], W2_[None],
+                              leaves[3][None], valid[None])
+        return p[0], c[0]
+
+    fwd, bwd = pool_core_fwd.launches, pool_core_bwd.launches
+    pooled, cnt = torch.func.vmap(one)(*leaves[:3])
+    dpool = torch.randn_like(pooled)
+    (pooled * dpool).sum().backward()
+    torch.cuda.synchronize()
+    assert (pool_core_fwd.launches - fwd, pool_core_bwd.launches - bwd) \
+        == (1, 1)
+    rows = valid > 0
+    merged = [a, u, W2, b2.expand(n, B).contiguous(),
+              valid.expand(n, S, N).contiguous()]
+    dbg = {}
+    kernel_grads = pool_core_bwd(*merged, pooled.detach(), cnt,
+                                 dpool.contiguous(), debug=dbg)
+    for x, k in zip(leaves[:3], kernel_grads[:3]):
+        assert torch.equal(x.grad, k)           # the same launch, R = 4
+    db2 = torch.zeros(B, device=cuda)
+    for r in range(n):
+        ref, ref_cnt = pool_core(a[r:r + 1], u[r:r + 1], W2[r:r + 1],
+                                 b2[None], valid[None])
+        assert (pooled[r][rows] - ref[0][rows]).abs().max() <= 1e-4
+        assert torch.equal(cnt[r][rows], ref_cnt[0][rows])
+        g = pool_core_bwd_plain(a[r:r + 1], u[r:r + 1], W2[r:r + 1],
+                                b2[None], valid[None], pooled[r:r + 1]
+                                .detach(), cnt[r:r + 1], dpool[r:r + 1],
+                                ties=dbg["ties"][r:r + 1])
+        for x, ref_g, tol in zip((leaves[0].grad[r], leaves[1].grad[r],
+                                  leaves[2].grad[r]), g[:3],
+                                 (1e-5, 1e-5, 1e-4)):
+            assert (x - ref_g[0]).abs().max().item() <= tol * max(
+                1.0, ref_g.abs().max().item())
+        db2 += g[3][0]
+    assert (leaves[3].grad - db2).abs().max().item() <= 1e-4 * max(
+        1.0, db2.abs().max().item())
+
+
+def test_train_many_on_card_saves_and_resumes(cuda, tmp_path, monkeypatch):
+    """A 2-seed train_many at narrow width on a small synthetic split for
+    4 iterations, then resumed from its files to 6: K2 exactly 3 and K1 at
+    least 4 launches an iteration, every launch at R = 2, no K3 although
+    lstm_impl says 'fused' (a sweep runs on 'scan'); per-seed files
+    with finite histories; the resume continues the counters and each
+    replica's generator state is saved."""
+    import os
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.ops import cuda_pool
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train import multi as MULTI
+    for split, seed in (("train", 0), ("val", 1)):
+        write_scene_files(str(tmp_path / "synth" / split), n_files=1,
+                          frames=60, max_peds=12, seed=seed)
+    monkeypatch.setenv("GROUPTRAJ_DATA_DIR", str(tmp_path))
+    cfg = ModelConfig(embedding_dim=8, encoder_h_dim_g=16,
+                      decoder_h_dim_g=16, noise_dim=(4,), bottleneck_dim=4,
+                      hidden_units=12, graph_out_dim=8, encoder_h_dim_d=16,
+                      mlp_dim=16)
+    tcfg = TrainConfig(dataset_name="synth", batch_size=8, best_k=4,
+                       num_epochs=0, num_iterations=4, steps_per_dispatch=2,
+                       print_every=2, checkpoint_every=2, n_buckets=2,
+                       num_samples_check=50, lstm_impl="fused", seed=6,
+                       output_dir=str(tmp_path / "out"), checkpoint_name="ck")
+    real = (cuda_pool.pool_core_fwd, cuda_pool.pool_core_bwd)
+    rs = []
+
+    class Recorded:
+        """Records R; ``launches`` is the wrapped function's (its body
+        counts through the module's name, which is this object here)."""
+
+        def __init__(self, fn):
+            self.fn = fn
+
+        launches = property(lambda self: self.fn.launches,
+                            lambda self, v: setattr(self.fn, "launches", v))
+
+        def __call__(self, *args, **kw):
+            rs.append(args[0].shape[0])
+            return self.fn(*args, **kw)
+    monkeypatch.setattr(cuda_pool, "pool_core_fwd", Recorded(real[0]))
+    monkeypatch.setattr(cuda_pool, "pool_core_bwd", Recorded(real[1]))
+    seeds = [6, 7]
+    before = [fn.launches for fn in real]
+    k3 = lstm_fused_fwd.launches
+    ckpts = MULTI.train_many(cfg, tcfg, seeds, device=cuda)
+    torch.cuda.synchronize()
+    k1_n, k2_n = (fn.launches - b for fn, b in zip(real, before))
+    assert k2_n == 3 * 4 and k1_n >= 4 * 4 and set(rs) == {2}
+    assert lstm_fused_fwd.launches == k3      # 'fused' runs as 'scan' here
+    for s in seeds:
+        ck = ckpts[s]
+        assert ck["counters"]["t"] == 4 and ck["args"]["seed"] == s
+        assert np.isfinite(ck["norm_g"]).all() and len(ck["norm_g"]) == 4
+        for name in ("ck_with_model.pt", "ck_no_model.pt"):
+            assert os.path.isfile(tmp_path / "out" / f"s{s}" / name)
+        saved = CK.load_checkpoint(str(tmp_path / "out" / f"s{s}" /
+                                       "ck_with_model.pt"))
+        assert saved[MULTI.RNG_KEY] is not None
+    again = MULTI.train_many(cfg, dataclasses.replace(
+        tcfg, num_iterations=6, restore_from_checkpoint=True), seeds,
+        device=cuda)
+    for s in seeds:
+        assert again[s]["counters"]["t"] == 6
+        assert again[s]["restore_ts"] == [4]
+        assert len(again[s]["norm_g"]) == 6
+        assert np.isfinite(again[s]["norm_d"]).all()
