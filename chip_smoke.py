@@ -8,7 +8,9 @@ Phases, each of which fails the run on any error:
    ptxas's registers, shared memory and spills; the count of tensor-core
    (HMMA) instructions in the pool kernels', K3's, K4's, K5's and K6's SASS
    (cuobjdump), which must not be 0 for K1's and K2's tile kernels and for
-   any instance of K3, K4, K5 or K6;
+   any instance of K3, K4, K5 or K6, and the bfloat16 HMMA
+   (HMMA.16816.F32.BF16) in their tiles, present in every bf16-mode
+   instance and in no exact-mode one;
 3. kernel: K1 (the social-pool pair core, csrc/pool_core_fwd.cu)
    against its plain PyTorch version on the card: the serving buckets, the
    per-step decoder's pool in a best-of-20 decode (S=1,280, N=64), the
@@ -112,7 +114,20 @@ Phases, each of which fails the run on any error:
    profile_train_many.txt) and the peak memory of a 4-seed iteration;
    train_many of 4 seeds on a synthetic split (batch 64, best_k 20, 3
    buckets) for 20 iterations with its launches, resumed from its files
-   to 30.
+   to 30;
+11. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
+   matmul precision; ``grouptraj_torch.ops.precision``) against their
+   plain versions in that mode at S=64/N=64/B=8, S=256/N=16/B=8,
+   S=128/N=64/B=48, S=1,280/N=64/B=8 and R=4/S=128/N=64/B=48 (kernel_bf16_phase,
+   run after K2's phase), each timed beside the exact mode on the same
+   inputs, its plain version and its bf16 bound, quantized inputs bit-equal,
+   bf16 weights; then, last, the paths with the setting at "default"
+   (bf16_paths_phase): the zoo Predictor with float32 and bfloat16
+   weights, a 'fused' training iteration, the per-step pooling model's
+   serving call and iteration, one step of a 2-seed train_iterations_many,
+   each with its bf16-mode launches, its drift from the exact mode and,
+   for the per-step paths and the f32 serving call, ms per call in either
+   mode in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -121,6 +136,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -138,6 +154,14 @@ TF32_PEAK = 495e12           # H100 SXM TF32 tensor-core FLOP/s, dense
 # ReLU, and the split hi = tf32(x), lo = tf32(x - hi)
 TC_ELEMENTWISE_OPS = 5
 HBM_BW = 3.35e12             # H100 SXM HBM bytes/s
+BF16_PEAK = 989e12           # H100 SXM bf16 tensor-core FLOP/s, dense
+# float32 operations per (pair, k) beside the bf16 mode's mma: subtract,
+# ReLU and the rounding to bfloat16
+BF16_ELEMENTWISE_OPS = 3
+# K1/K2 in the bf16 mode against their plain versions (kernel_bf16_phase):
+# pooled and each of K2's tensors, max |Δ| relative to the reference's
+# largest entry (the same exact bf16 products summed in another order)
+BF16_RTOL = 1e-5
 SLEEP_CYCLES = 2_000_000     # ~1 ms of GPU clock: the stream's lead in time_ms
 POOL_ATOL = 1e-4             # kernel vs plain, pooled (see check_kernel)
 BWD_RTOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}  # check_bwd
@@ -171,7 +195,8 @@ BUCKETS = {"S64_N64": (64, 64, 57), "S256_N16": (256, 16, 16)}
 
 
 def kernel_name(line):
-    """``pool_core_fwd_kernel<6,f32>``, ``lstm_fused_fwd_kernel<32,0,0>``
+    """``pool_core_fwd_kernel<6,f32,0>`` (NT, weights, bf16 mode),
+    ``ties_kernel<6,1>`` (NT, bf16 mode), ``lstm_fused_fwd_kernel<32,0,0>``
     (H, WITH_GX, SAVE), ``lstm_fused_bwd_kernel<48,1>`` (H, WITH_GX),
     ``lstm_proj_fwd_kernel<16,48,1>`` (D, H, SAVE) or
     ``lstm_proj_bwd_kernel<16,48>`` from a line that names a pool kernel's,
@@ -190,11 +215,11 @@ def kernel_name(line):
         args = [x for x in m.groups()[1:] if x is not None]
         return m.group(1) + (f"<{','.join(args)}>" if args else "")
     m = re.search(r"((?:split_w|pool_core_fwd|ties|tie_grads|weight_reduce)"
-                  r"_kernel)(?:I(?:L[ib](\d+)E)?(f|13__nv_bfloat16)?E)?", line)
+                  r"_kernel)(?:I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E)?", line)
     if m is None:
         return None
-    args = [x for x in (m.group(2), {None: None, "f": "f32"}.get(
-        m.group(3), "bf16")) if x]
+    args = [num or ("bf16" if bf else "f32") for num, bf in re.findall(
+        r"L[ib](\d+)E|(13__nv_bfloat16)|f", m.group(2) or "")]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -205,19 +230,24 @@ HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_fwd",
 HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
                 "lstm_proj_fwd_kernel", "lstm_proj_bwd_kernel")
+# K1's and K2's pair tiles, each instantiated in both modes
+BF16_TILES = ("pool_core_fwd_kernel", "ties_kernel")
 
 
 def sass_hmma(libs):
     """The count of HMMA (tensor-core mma) instructions in each kernel of
     the pool libraries', K3's, K4's, K5's and K6's SASS, by cuobjdump
     beside nvcc; fails if K1's or K2's tile kernel or any instance of K3,
-    K4, K5 or K6 has none. None where the toolkit has no cuobjdump."""
+    K4, K5 or K6 has none, or if a bf16-mode instance of K1's or K2's tile
+    (last template argument 1) has no bfloat16 HMMA (HMMA.16816.F32.BF16)
+    or an exact-mode one has any. -> (HMMA counts, bf16 HMMA counts of the
+    pool tiles); (None, None) where the toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"sass: no cuobjdump at {tool}; HMMA count not taken")
-        return None
-    counts = {}
+        return None, None
+    counts, bf16 = {}, {}
     for lib in HMMA_LIBS:
         sass = subprocess.run([tool, "-sass", str(libs[lib])],
                               capture_output=True, text=True, timeout=120,
@@ -228,14 +258,26 @@ def sass_hmma(libs):
                 fn = kernel_name(line)
                 if fn is not None:
                     counts[fn] = 0
+                    if fn.startswith(BF16_TILES):
+                        bf16[fn] = 0
             elif fn is not None and "HMMA" in line:
                 counts[fn] += 1
+                if fn in bf16 and "HMMA.16816.F32.BF16" in line:
+                    bf16[fn] += 1
     print("sass HMMA: " + " ".join(f"{f}={c}" for f, c in counts.items()))
+    print("sass bf16 HMMA (HMMA.16816.F32.BF16): "
+          + " ".join(f"{f}={c}" for f, c in bf16.items()))
     for kernel in HMMA_KERNELS:
         tiles = [c for f, c in counts.items() if f.startswith(kernel)]
         if not tiles or min(tiles) == 0:
             fail(f"{kernel} runs no tensor-core instruction (HMMA)")
-    return counts
+    modes = {f.rstrip(">").split(",")[-1] for f in bf16}
+    if modes != {"0", "1"}:
+        fail(f"the pool tiles' instances are not of both modes: {sorted(bf16)}")
+    for f, c in bf16.items():
+        if (c > 0) != f.endswith(",1>"):
+            fail(f"{f}: {c} bfloat16 HMMA, against its mode")
+    return counts, bf16
 
 
 def fail(msg):
@@ -321,24 +363,26 @@ def pool_inputs(rng, valid, K_=512, B=8, R=1, bf16=False):
             cuda(torch.from_numpy(valid.astype(np.float32))))
 
 
-def _bounds(pairs, K_, B, passes, extra_ops, nbytes):
+def _bounds(pairs, K_, B, passes, extra_ops, nbytes, peak=TF32_PEAK,
+            elementwise=TC_ELEMENTWISE_OPS):
     """Least times (ms) for pair work on these inputs, both against every
     input read and every output written once over HBM bandwidth:
 
     - float32 cores: K·(2+2B) operations per valid pair (subtract, ReLU,
       B multiply-adds) plus ``extra_ops``, over FP32_PEAK;
     - tensor cores: the pair products (2·B per pair and k) times the
-      ``passes`` of the 3xTF32 split over TF32_PEAK, and beside them (the
-      two units run at once, so the larger counts) the subtract, the ReLU
-      and the split (TC_ELEMENTWISE_OPS per pair and k) plus ``extra_ops``
-      over FP32_PEAK.
+      ``passes`` of the 3xTF32 split over ``peak`` (TF32_PEAK; for the
+      bf16 mode one pass over BF16_PEAK), and beside them (the two units
+      run at once, so the larger counts) the subtract, the ReLU and the
+      split or rounding (``elementwise`` per pair and k) plus
+      ``extra_ops`` over FP32_PEAK.
 
     ``bound_ms`` is the smaller of the two; ``bound_by`` says whether bytes
     or operations set it and ``bound_unit`` which units' bound it is."""
     t_bytes = nbytes / HBM_BW * 1e3
     t_f32 = (pairs * K_ * (2 + 2 * B) + extra_ops) / FP32_PEAK * 1e3
-    t_tc = max(pairs * K_ * 2 * B * passes / TF32_PEAK,
-               (pairs * K_ * TC_ELEMENTWISE_OPS + extra_ops) / FP32_PEAK) * 1e3
+    t_tc = max(pairs * K_ * 2 * B * passes / peak,
+               (pairs * K_ * elementwise + extra_ops) / FP32_PEAK) * 1e3
     f32, tc = max(t_f32, t_bytes), max(t_tc, t_bytes)
     unit, t_ops = ("tensor-core", t_tc) if tc <= f32 else ("float32", t_f32)
     return dict(bound_ms=min(f32, tc),
@@ -351,23 +395,26 @@ def _valid_pairs(valid):
     return float((nv * nv).sum())
 
 
-def pool_bound_ms(a, W2, valid, outputs_bytes):
+def pool_bound_ms(a, W2, valid, outputs_bytes, bf16=False):
     """Least time for the pair core on these inputs (:func:`_bounds`):
     the valid pairs' operations, with 3 split passes for float32 weights
-    and 2 for bfloat16, against reading a, u, W2, b2, valid and writing the
-    outputs once."""
+    and 2 for bfloat16 (in the bf16 mode one pass at the bf16 rate),
+    against reading a, u, W2, b2, valid and writing the outputs once."""
     import torch
     R, S, N, K_ = a.shape
     B = W2.shape[-1]
     nbytes = (2 * a.numel() * 4 + W2.numel() * W2.element_size()
               + B * R * W2.element_size() + valid.numel() * 4
               + outputs_bytes)
+    if bf16:
+        return _bounds(_valid_pairs(valid), K_, B, 1, 0.0, nbytes,
+                       BF16_PEAK, BF16_ELEMENTWISE_OPS)
     passes = 3 if W2.dtype == torch.float32 else 2
     return _bounds(_valid_pairs(valid), K_, B, passes, 0.0, nbytes)
 
 
 def check_kernel(name, a, u, W2, b2, valid, expect_ties=False,
-                 near_ties=False):
+                 near_ties=False, bf16=False):
     """Kernel vs plain on the card. pooled within POOL_ATOL: float32 sums
     of K=512 products in different orders, values of a few units; cnt
     equal, since ties come from equal inputs that give bit-equal values in
@@ -376,20 +423,25 @@ def check_kernel(name, a, u, W2, b2, valid, expect_ties=False,
     within rounding of another value) a row whose cnt differs passes if
     the kernel's count is at least 1 and at most the number of j whose
     plain value lies within NEAR_TIE_ATOL of the plain max: the two
-    orders of summation resolved a near-tie differently."""
+    orders of summation resolved a near-tie differently. With ``bf16``
+    both run in the bf16 mode and pooled must lie within BF16_RTOL of the
+    plain version's largest value."""
     import torch
     from grouptraj_torch.ops.cuda_pool import pool_core_fwd
     from grouptraj_torch.ops.pooling import pool_core
-    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid)
-    ref, ref_cnt = pool_core(a, u, W2, b2, valid)
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid, bf16=bf16)
+    ref, ref_cnt = pool_core(a, u, W2, b2, valid, bf16=bf16)
     torch.cuda.synchronize()
     rows = valid > 0
     err = (pooled - ref)[rows].abs().max().item() if rows.any() else 0.0
+    tol = (BF16_RTOL * max(1.0, ref[rows].abs().max().item()) if bf16
+           else POOL_ATOL)
     cnt_bad = int((cnt != ref_cnt)[rows].sum())
     if cnt_bad and near_ties:
-        o = torch.relu(torch.relu(a.unsqueeze(-3) - u.unsqueeze(-2))
-                       @ W2.float()[:, None, None] + b2.float()[:, None, None,
-                                                          None])
+        rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+        o = torch.relu(rnd(torch.relu(a.unsqueeze(-3) - u.unsqueeze(-2)))
+                       @ rnd(W2.float())[:, None, None]
+                       + b2.float()[:, None, None, None])
         o = o.masked_fill(~(valid[..., None, :, None] > 0), -1e9)
         near = ((o - ref.unsqueeze(-2)).abs() <= NEAR_TIE_ATOL).sum(-2)
         del o
@@ -402,10 +454,11 @@ def check_kernel(name, a, u, W2, b2, valid, expect_ties=False,
     pad_ok = bool((pooled[pad] == 0).all() and (cnt[pad] == 0).all())
     ties = int((ref_cnt[rows] > 1).sum())
     print(f"kernel {name}: shape a={tuple(a.shape)} B={W2.shape[-1]} "
-          f"W2={str(W2.dtype)[6:]} max_abs_err={err:.3e} "
+          f"W2={str(W2.dtype)[6:]} mode={'bf16' if bf16 else 'exact'} "
+          f"max_abs_err={err:.3e} (tolerance {tol:.1e}) "
           f"cnt_mismatch={cnt_bad} tie_entries={ties} pad_scenes="
           f"{int(pad.sum())} pad_zero={pad_ok}")
-    if not (err <= POOL_ATOL and cnt_bad == 0 and pad_ok):
+    if not (err <= tol and cnt_bad == 0 and pad_ok):
         fail(f"kernel case {name} disagrees with the plain version")
     if expect_ties and ties == 0:
         fail(f"kernel case {name} produced no ties to check")
@@ -481,25 +534,29 @@ def kernel_phase(rng):
     return max(errs), timed
 
 
-def bwd_bound_ms(a, W2, valid, pooled, cnt):
+def bwd_bound_ms(a, W2, valid, pooled, cnt, bf16=False):
     """Least time for the pool backward on these inputs (:func:`_bounds`).
     Operations: the recompute of every valid pair (as the forward, float32
-    weights: 3 split passes) plus, for each (i, j, b) that reached a
-    positive max at a valid i (Σ cnt there), ~6 float32 operations per k
-    (subtract, test, multiply-add into da and du, ReLU and multiply-add
-    into dW2). Bytes: a, u, pooled, cnt, dpool, valid, W2, b2 read and da,
-    du, dW2, db2 written once."""
+    weights: 3 split passes; in the bf16 mode one pass at the bf16 rate)
+    plus, for each (i, j, b) that reached a positive max at a valid i
+    (Σ cnt there), ~6 float32 operations per k (subtract, test,
+    multiply-add into da and du, ReLU and multiply-add into dW2; 7 in the
+    bf16 mode, which rounds the ReLU). Bytes: a, u, pooled, cnt, dpool,
+    valid, W2, b2 read and da, du, dW2, db2 written once."""
     R, S, N, K_ = a.shape
     B = W2.shape[-1]
     live = (valid[..., None] > 0) & (pooled > 0)
     entries = float(cnt[live].double().sum())
     nbytes = 4 * (4 * a.numel() + 3 * pooled.numel() + valid.numel()
                   + 2 * (W2.numel() + R * B))
+    if bf16:
+        return _bounds(_valid_pairs(valid), K_, B, 1, entries * K_ * 7,
+                       nbytes, BF16_PEAK, BF16_ELEMENTWISE_OPS)
     return _bounds(_valid_pairs(valid), K_, B, 3, entries * K_ * 6, nbytes)
 
 
 def check_bwd(name, rng, a, u, W2, b2, valid, expect_ties=False,
-              exact=False):
+              exact=False, bf16=False):
     """K2 vs its plain version on the card, on K1's (pooled, cnt).
 
     1. recount: the number of valid j the backward's recompute found equal
@@ -520,17 +577,20 @@ def check_bwd(name, rng, a, u, W2, b2, valid, expect_ties=False,
        and the plain backward runs literally, with its own selection.
     The cotangent is non-zero at invalid rows too, which must not matter,
     and a second call without the weight gradients must give the same
-    da/du."""
+    da/du. With ``bf16`` K1, K2 and the plain versions all run in the bf16
+    mode, each tensor within BF16_RTOL of its largest reference entry."""
     import torch
     from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
     from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
-    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid)
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid, bf16=bf16)
     dpool = torch.from_numpy(rng.integers(-8, 9, size=tuple(pooled.shape))
                              .astype("float32") / 8).cuda()
     dbg = {}
-    out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool, debug=dbg)
+    out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool, debug=dbg,
+                        bf16=bf16)
     da2, du2, none_w, none_b = pool_core_bwd(a, u, W2, b2, valid, pooled,
-                                             cnt, dpool, weight_grads=False)
+                                             cnt, dpool, weight_grads=False,
+                                             bf16=bf16)
     torch.cuda.synchronize()
     rows = valid > 0
     recount_bad = int((dbg["recount"] != cnt)[rows].sum())
@@ -540,22 +600,24 @@ def check_bwd(name, rng, a, u, W2, b2, valid, expect_ties=False,
     same = bool(torch.equal(out[0], da2) and torch.equal(out[1], du2)
                 and none_w is None and none_b is None)
     if exact:
-        ref_pooled, ref_cnt = pool_core(a, u, W2, b2, valid)
+        ref_pooled, ref_cnt = pool_core(a, u, W2, b2, valid, bf16=bf16)
         fwd_equal = bool(torch.equal(pooled[rows], ref_pooled[rows])
                          and torch.equal(cnt[rows], ref_cnt[rows]))
         ref = pool_core_bwd_plain(a, u, W2, b2, valid, ref_pooled, ref_cnt,
-                                  dpool)
+                                  dpool, bf16=bf16)
     else:
         fwd_equal = True
         ref = pool_core_bwd_plain(a, u, W2, b2, valid, pooled, cnt, dpool,
-                                  ties=ties)
+                                  ties=ties, bf16=bf16)
+    rtol = dict.fromkeys(BWD_RTOL, BF16_RTOL) if bf16 else BWD_RTOL
     errs, ok = {}, True
     for key, x, r in zip(BWD_RTOL, out, ref):
         errs[key] = (x - r).abs().max().item()
-        ok &= errs[key] <= BWD_RTOL[key] * max(1.0, r.abs().max().item())
+        ok &= errs[key] <= rtol[key] * max(1.0, r.abs().max().item())
         ok &= bool(torch.isfinite(x).all())
     n_ties = int((want > 1).sum())
     print(f"kernel bwd {name}: shape a={tuple(a.shape)} B={W2.shape[-1]} "
+          f"mode={'bf16' if bf16 else 'exact'} "
           f"recount_mismatch={recount_bad} selection_mismatch={sel_bad} "
           f"entries={int(ties.sum())} positive_tie_entries={n_ties} "
           + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
@@ -1109,12 +1171,21 @@ def reset_counts():
     for wrapper in (pool_core_fwd, pool_core_bwd, lstm_fused_fwd,
                     lstm_fused_bwd, lstm_proj_fwd, lstm_proj_bwd):
         wrapper.launches = 0
+    pool_core_fwd.launches_bf16 = pool_core_bwd.launches_bf16 = 0
 
 
 def all_counts():
     from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
     return {"pool_core_fwd": pool_core_fwd.launches,
             "pool_core_bwd": pool_core_bwd.launches, **lstm_counts()}
+
+
+def bf16_counts():
+    """K1's and K2's launches in their bf16 mode (all_counts counts the
+    exact mode's)."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    return {"pool_core_fwd_bf16": pool_core_fwd.launches_bf16,
+            "pool_core_bwd_bf16": pool_core_bwd.launches_bf16}
 
 
 def serve_fused_phase(predictor, batches, noises):
@@ -1942,13 +2013,15 @@ def plain_pool_kernels():
         return tuple(torch.cat(p, 1) if p[0].dim() == a.dim() else sum(p)
                      for p in zip(*outs))
 
-    def fwd(a, u, W2, b2, valid):
-        return chunked(pool_core, a, u, W2, b2, valid)
+    def fwd(a, u, W2, b2, valid, bf16=False):
+        return chunked(functools.partial(pool_core, bf16=bf16), a, u, W2,
+                       b2, valid)
 
     def bwd(a, u, W2, b2, valid, pooled, cnt, dpool, weight_grads=True,
-            debug=None):
-        da, du, dW2, db2 = chunked(pool_core_bwd_plain, a, u, W2, b2, valid,
-                                   pooled, cnt, dpool)
+            debug=None, bf16=False):
+        da, du, dW2, db2 = chunked(
+            functools.partial(pool_core_bwd_plain, bf16=bf16), a, u, W2, b2,
+            valid, pooled, cnt, dpool)
         return (da, du, dW2, db2) if weight_grads else (da, du, None, None)
 
     return _swapped(cuda_pool, pool_core_fwd=fwd, pool_core_bwd=bwd)
@@ -2235,6 +2308,228 @@ def plain_lstm_proj_kernels():
                     lstm_proj_bwd=lstm_proj_bwd_plain)
 
 
+# ----------------------------------------------------------------- bf16
+
+# K1/K2's bf16 mode at the main paths' shapes: name -> (S, N, B, R); the
+# masks are realistic (2 to 57 pedestrians a scene at N=64, 2 to 16 at 16)
+BF16_SHAPES = {"S64_N64_B8": (64, 64, 8, 1), "S256_N16_B8": (256, 16, 8, 1),
+               "S128_N64_B48": (128, 64, 48, 1),
+               "S1280_N64_B8": (1280, 64, 8, 1),
+               "R4_S128_N64_B48": (128, 64, 48, 4)}
+
+
+def kernel_bf16_phase(rng):
+    """K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
+    matmul precision) against their plain versions in that mode, TF32
+    off: at each BF16_SHAPES shape K1 (pooled within BF16_RTOL, cnt equal
+    on valid rows but for reported near-ties) and K2 on its own selection
+    (check_bwd: recount, selection, each tensor within BF16_RTOL), each
+    timed beside the exact mode on the same inputs, its plain version and
+    its bf16 bound; the bf16 mode differs from the exact one; quantized
+    inputs (exact in bfloat16: K1 bit-equal with the plain version, K2 on
+    the plain selection) at B=8 and 48; bf16 weights.
+    -> (K1's worst error, K2's worst error, {"fwd"|"bwd": {shape: times}})"""
+    import torch
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+
+    t_phase = time.perf_counter()
+    errs, timed = {"fwd": [], "bwd": []}, {"fwd": {}, "bwd": {}}
+    for name, (S, N, B, R) in BF16_SHAPES.items():
+        valid = realistic_valid(rng, S, N, 2, 16 if N == 16 else 57, R=R)
+        args = pool_inputs(rng, valid, B=B, R=R)
+        errs["fwd"].append(check_kernel(f"bf16 {name}", *args,
+                                        near_ties=True, bf16=True))
+        bound = pool_bound_ms(args[0], args[2], args[4],
+                              2 * args[0][..., :1].numel() * B * 4, bf16=True)
+        ms = time_ms(lambda: pool_core_fwd(*args, bf16=True))
+        exact_ms = time_ms(lambda: pool_core_fwd(*args))
+        plain_ms = time_ms(lambda: pool_core(*args, bf16=True), reps=5,
+                           warmup=1)
+        timed["fwd"][name] = dict(ms=ms, exact_ms=exact_ms,
+                                  plain_ms=plain_ms, **bound)
+        pooled, cnt = pool_core_fwd(*args, bf16=True)
+        moved = (pooled - pool_core_fwd(*args)[0]).abs().max().item()
+        print(f"kernel bf16 {name} time: kernel_ms={ms:.4f} exact_mode_ms="
+              f"{exact_ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound)}"
+              f" kernel/bound={ms / bound['bound_ms']:.2f}; bf16 vs exact "
+              f"mode max |dpooled| = {moved:.3e}")
+        if moved == 0:
+            fail(f"bf16 {name}: the bf16 mode computed the exact mode's "
+                 f"values")
+
+        errs["bwd"].append(check_bwd(f"bf16 {name}", rng, *args, bf16=True))
+        dpool = torch.randn_like(pooled)
+        bound = bwd_bound_ms(args[0], args[2], args[4], pooled, cnt,
+                             bf16=True)
+        ms = time_ms(lambda: pool_core_bwd(*args, pooled, cnt, dpool,
+                                           bf16=True))
+        xp, xc = pool_core_fwd(*args)
+        exact_ms = time_ms(lambda: pool_core_bwd(*args, xp, xc, dpool))
+        plain_ms = time_ms(lambda: pool_core_bwd_plain(
+            *args, pooled, cnt, dpool, bf16=True), reps=5, warmup=1)
+        timed["bwd"][name] = dict(ms=ms, exact_ms=exact_ms,
+                                  plain_ms=plain_ms, **bound)
+        print(f"kernel bwd bf16 {name} time: kernel_ms={ms:.4f} "
+              f"exact_mode_ms={exact_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"{_bound_text(bound)} kernel/bound={ms / bound['bound_ms']:.2f}")
+        del args, pooled, cnt, dpool, xp, xc
+        torch.cuda.empty_cache()
+    errs["bwd"].append(check_bwd("bf16 exact_inputs", rng, *quantized_inputs(
+        rng, realistic_valid(rng, 16, 40, 6, 40)), expect_ties=True,
+        exact=True, bf16=True))
+    errs["bwd"].append(check_bwd("bf16 exact_inputs_B48", rng,
+                                 *quantized_inputs(rng, realistic_valid(
+                                     rng, 8, 64, 20, 64), B=48),
+                                 expect_ties=True, exact=True, bf16=True))
+    errs["fwd"].append(check_kernel("bf16 bf16_weights", *pool_inputs(
+        rng, realistic_valid(rng, 64, 64, 2, 57), bf16=True), near_ties=True,
+        bf16=True))
+    errs["fwd"].append(check_kernel("bf16 bf16_weights_B48", *pool_inputs(
+        rng, realistic_valid(rng, 128, 64, 2, 57), B=48, bf16=True),
+        near_ties=True, bf16=True))
+    print(f"kernel bf16: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return max(errs["fwd"]), max(errs["bwd"]), timed
+
+
+def bf16_paths_phase(batches, noises):
+    """Every path that reaches the pool core, run with the precision
+    setting at "default" (K1/K2 in their bf16 mode) right after the same
+    call in the exact mode: the zoo's zara1_12 Predictor at k=20 with float32
+    and with bfloat16 weights (S=64, N=64); one 'fused' training iteration
+    (losses and gradients, nothing updated) of the gat preset at full
+    width; the gat preset with pool_every_timestep served at k=20 and one
+    of its iterations; one train_iterations_many step of a 2-seed sweep.
+    Each bf16 run has every count at 0 just before and read just after:
+    K1's bf16 count (and K2's where there is a backward) must not be 0 and
+    no exact-mode pool launch may happen. Prints each path's drift from
+    the exact mode (max |Δposition|, losses) and, for the zoo's f32
+    serving call and the per-step paths (the port's only kernel-bound
+    ones), wall ms per call in either mode, in turns. -> {path: counts}"""
+    import numpy as np
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.ops.precision import default_matmul_precision
+    from grouptraj_torch.serve import Predictor
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    from grouptraj_torch.train.steps import (
+        init_train_state, stack_states, train_iterations_many,
+    )
+
+    t_phase = time.perf_counter()
+    sc, gr = batches["S64_N64"]
+    z = noises["S64_N64"]
+    launches = {}
+
+    def both(path, run, backward):
+        """run() in the exact mode, then in the bf16 mode with the counts
+        at 0 just before and read just after -> (exact, bf16) outputs."""
+        exact = run()
+        torch.cuda.synchronize()
+        reset_counts()
+        with default_matmul_precision("default"):
+            out = run()
+        torch.cuda.synchronize()
+        counts = {**all_counts(), **bf16_counts()}
+        print(f"bf16 {path} main path launches: {json.dumps(counts)}")
+        if counts["pool_core_fwd_bf16"] == 0 or (
+                backward and counts["pool_core_bwd_bf16"] == 0):
+            fail(f"bf16 {path}: the bf16 mode's K1/K2 were not launched")
+        if counts["pool_core_fwd"] or counts["pool_core_bwd"]:
+            fail(f"bf16 {path}: an exact-mode pool launch under the bf16 "
+                 f"setting")
+        launches[path] = counts
+        return exact, out
+
+    def positions(path, exact, out):
+        if not all(np.isfinite(o).all() for o in out):
+            fail(f"bf16 {path}: outputs not finite")
+        d = max(np.abs(o - r).max() for o, r in zip(out, exact))
+        print(f"bf16 {path}: bf16 vs exact mode max |dpos| = {d:.3e} m")
+
+    def turns(path, run):
+        """Median wall ms per run() in the exact and the bf16 mode, in
+        turns (exact, bf16, bf16, exact; a warm-up call and 3 timed)."""
+        secs = {"exact": [], "bf16": []}
+        for mode in ("exact", "bf16", "bf16", "exact"):
+            with default_matmul_precision(
+                    "highest" if mode == "exact" else "default"):
+                run()
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    secs[mode].append(time.perf_counter() - t0)
+        ms = {m: statistics.median(v) * 1e3 for m, v in secs.items()}
+        print(f"bf16 {path} time: exact mode {ms['exact']:.2f} ms, bf16 mode "
+              f"{ms['bf16']:.2f} ms per call (median of 6, in turns; "
+              f"bf16/exact {ms['bf16'] / ms['exact']:.3f})")
+
+    def losses(path, exact, out):
+        if not all(np.isfinite(float(v)) for v in out.values()):
+            fail(f"bf16 {path}: losses not finite")
+        d = {k: abs(float(out[k]) - float(v)) / max(abs(float(v)), 1e-12)
+             for k, v in exact.items()}
+        print(f"bf16 {path}: bf16 vs exact mode relative |dloss| "
+              + " ".join(f"{k}={v:.3e}" for k, v in d.items()))
+
+    for tag, dtype in (("f32", None), ("bf16_weights", "bfloat16")):
+        kw = {} if dtype else {"param_dtype": None}
+        p = Predictor.from_checkpoint(CKPT, num_samples=K, device="cuda",
+                                      **kw)
+        positions(f"serve_{tag}", *both(
+            f"serve_{tag}", lambda: p.predict_batch(sc, gr, noises=z),
+            False))
+        if dtype is None:
+            turns("serve_f32", lambda: p.predict_batch(sc, gr, noises=z))
+        del p
+
+    cfg, tcfg = ModelConfig(), TrainConfig()
+    S, k = tcfg.batch_size, tcfg.best_k
+    data = synthetic_device_data(256, 64, seed=3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    idx = torch.randint(0, 256, (1, 2, S), generator=gen, device="cuda")
+    batch = gather_batch(data, idx[0, 0], cfg.obs_len)
+    draw = dict(noise=torch.randn((S, 64, 8), generator=gen, device="cuda"),
+                noises=torch.randn((k, S, 64, 8), generator=gen,
+                                   device="cuda"), label=0.9)
+    state, _, _ = alive_state(cfg, tcfg, batch, gen)
+    losses("train_fused", *both("train_fused", lambda: _one_iteration(
+        state, batch, cfg, tcfg, **draw, impl="fused")[0], True))
+
+    pet = ModelConfig(pool_every_timestep=True)
+    state, _, _ = alive_state(pet, tcfg, batch, gen)
+    sd = {k_: v.detach() for k_, v in state.g.state_dict().items()}
+    p = Predictor(sd, pet, num_samples=K, param_dtype=None, device="cuda")
+    positions("serve_pet", *both(
+        "serve_pet", lambda: p.predict_batch(sc, gr, noises=z), False))
+    turns("serve_pet", lambda: p.predict_batch(sc, gr, noises=z))
+    losses("train_pet", *both("train_pet", lambda: _one_iteration(
+        state, batch, pet, tcfg, **draw)[0], True))
+    turns("train_pet (losses and gradients of one iteration)",
+          lambda: _one_iteration(state, batch, pet, tcfg, **draw))
+    del p, state
+
+    seeds = (6, 7)
+
+    def sweep():
+        st = stack_states([init_train_state(
+            cfg, tcfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(s))
+            for s in seeds], tcfg)
+        gens = [torch.Generator(device="cuda").manual_seed(1000 + s)
+                for s in seeds]
+        out = train_iterations_many(st, data, idx, cfg, tcfg, gens)
+        return {f"{name}_s{s}": v[i, -1] for name, v in out.items()
+                for i, s in enumerate(seeds)}
+    losses("train_many", *both("train_many", sweep, True))
+    print(f"bf16 paths: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ----------------------------------------------------------------- many
 
 MANY_SEEDS = (6, 7, 8, 9)    # the sweep's replica seeds (6: the loop's)
@@ -2264,6 +2559,9 @@ class _Recorded:
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, v: setattr(self.fn, "launches", v))
+    launches_bf16 = property(
+        lambda self: self.fn.launches_bf16,
+        lambda self, v: setattr(self.fn, "launches_bf16", v))
 
     def __call__(self, *args, **kw):
         self.record(self.fn, args)
@@ -2585,11 +2883,12 @@ def main():
             elif "registers" in line or "spill" in line:
                 print(f"build {name} {fn}: {line.strip()}")
 
-    hmma = sass_hmma(libs)
+    hmma, hmma_bf16 = sass_hmma(libs)
 
     rng = np.random.default_rng(0)
     max_err, timed = kernel_phase(rng)
     bwd_err, bwd_timed = kernel_bwd_phase(rng)
+    bf16_err, bf16_bwd_err, bf16_timed = kernel_bf16_phase(rng)
     k3_err, k4_err, lstm_timed, lstm_library = lstm_kernel_phase()
     k5_err, k6_err, proj_timed = proj_kernel_phase()
 
@@ -2613,6 +2912,7 @@ def main():
     loop_launches = loop_phase(smi.splitlines()[0])
     preset_launches = presets_phase(batches, noises)
     many_launches, many_timed, _ = many_phase(rng, smi.splitlines()[0])
+    bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
     # before it and read just after it: serving through the Predictor (scan
@@ -2630,6 +2930,9 @@ def main():
     # "nearest_library". nn.LSTM computes exactly K5's function (and its
     # backward K6's): K5's library_ms is its forward with grad at the
     # discriminator encoder's shape, K6's its forward + backward less that.
+    # K1's and K2's bf16 mode are entries of their own, their launches
+    # those of bf16_paths_phase's paths (the setting at "default"); on the
+    # paths above, in the default exact mode, their counts are 0.
     paths = {"serve": serve_launches,
              "serve_fused": route_serve_launches["fused"],
              "serve_pallas": route_serve_launches["pallas"],
@@ -2647,8 +2950,8 @@ def main():
                           if k_ == kind} for kind in ("fwd", "bwd")}
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
-              **more):
-        by_path = {path: counts[name] for path, counts in paths.items()}
+              by_paths=paths, **more):
+        by_path = {path: counts[name] for path, counts in by_paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
@@ -2707,7 +3010,21 @@ def main():
                           - d_lib["library_fwd_train_ms"]),
               **tc_more(proj_timed[k56_shape]["bwd"],
                           {n: t["bwd"] for n, t in proj_timed.items()
-                           if "bwd" in t}, "lstm_proj_bwd_kernel"))]}
+                           if "bwd" in t}, "lstm_proj_bwd_kernel")),
+        entry("pool_core_fwd_bf16", "grouptraj_torch/csrc/pool_core_fwd.cu",
+              "grouptraj/ops/pallas_pool.py:160", bf16_err, "S64_N64_B8",
+              bf16_timed["fwd"]["S64_N64_B8"], by_paths=bf16_paths,
+              exact_ms=bf16_timed["fwd"]["S64_N64_B8"]["exact_ms"],
+              hmma_bf16=hmma_bf16,
+              **tc_more(bf16_timed["fwd"]["S64_N64_B8"], bf16_timed["fwd"],
+                        "pool_core_fwd_kernel")),
+        entry("pool_core_bwd_bf16", "grouptraj_torch/csrc/pool_core_bwd.cu",
+              "grouptraj/ops/pallas_pool.py:206", bf16_bwd_err,
+              "S128_N64_B48", bf16_timed["bwd"]["S128_N64_B48"],
+              by_paths=bf16_paths,
+              exact_ms=bf16_timed["bwd"]["S128_N64_B48"]["exact_ms"],
+              **tc_more(bf16_timed["bwd"]["S128_N64_B48"], bf16_timed["bwd"],
+                        "ties_kernel"))]}
     for kernel in record["kernels"]:
         if kernel["launches"] == 0:
             fail(f"{kernel['name']} was launched on no main path")

@@ -38,6 +38,13 @@
 // A warp holds one m16 tile (two j) for all 48 columns: 24 float64
 // accumulators and the running (max, count) fit in 128 registers.
 //
+// The bfloat16 mode (Mode::kBf16) is the TPU kernel's product at JAX's
+// default matmul precision: relu(a - u) and W2 rounded to bfloat16 (to
+// nearest, ties to even, as astype(jnp.bfloat16) rounds), one mma.sync
+// m16n8k16 bf16 pass per 16-k step with float32 out. The products of two
+// bfloat16 values are exact; each step's sum joins the pair's float64 sum
+// as in the exact modes, so the backward's recompute stays bit-equal.
+//
 // Staging: W2 is split once per call, by split_w_kernel, into hi/lo
 // fragments in the order the mma reads them ([K/8][B/8][32 lanes][4]). The
 // block of 16 warps then walks (pass of 32 j) x (chunk of 64 k for
@@ -77,6 +84,17 @@ constexpr int kColsMax = 8 * kNTMax;    // B <= 48 in one pass
 constexpr int kSlot = 4;                // floats per lane and W fragment:
                                         // hi b0, hi b1, lo b0, lo b1
 constexpr int kStages = 3;              // ring depth
+
+// How the tile runs a pair's products (chunk_mma): 3xTF32 for float32
+// weights, 2xTF32 for bfloat16 weights (both float32-exact), or the
+// bfloat16 mode for weights of either type.
+enum class Mode { kTF32x3, kTF32x2, kBf16 };
+
+template <typename W>
+__host__ __device__ constexpr Mode mode_of(bool bf16) {
+  return bf16 ? Mode::kBf16
+              : (std::is_same<W, float>::value ? Mode::kTF32x3 : Mode::kTF32x2);
+}
 
 // A tile of nt n-tiles. Narrow tiles (B <= 16) have few products per
 // k-step: they take 64 k per chunk (half the syncs and copy round trips of
@@ -121,6 +139,28 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// x rounded to bfloat16, to nearest with ties to even, as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// (x, y) rounded to bfloat16 (to nearest, ties to even) in one register,
+// x in the low half: the lower k of an mma operand's pair
+__device__ __forceinline__ uint32_t bf16x2(float x, float y) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(y), "f"(x));
+  return r;
+}
+
+// d += A B on the tensor cores, bfloat16 in, float32 out (m16n8k16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Copies the scene's valid flags to shared memory and returns its extent
 // n = last valid j + 1 (0 for a pad scene). All threads of the block call
 // it; it synchronises.
@@ -153,7 +193,10 @@ __device__ __forceinline__ void stage_bias(float* s_b, const W* __restrict__ b2,
 // and lane, {hi b0, hi b1, lo b0, lo b1} of the B fragment, b0 / b1 at
 // k = 8 ks + 2 (lane % 4) + {0, 1}, column 8 t + lane / 4; zeros past K
 // and B. hi = tf32(w), lo = tf32(w - hi) (0 for bfloat16, exact in TF32).
-template <typename W>
+// With kBf16 the slot's first word holds {b0, b1} rounded to bfloat16
+// (b0 in the low half) and the other three are zero: the same layout and
+// staging, the pair of one 8-k step in one register.
+template <typename W, bool kBf16>
 __global__ void __launch_bounds__(256)
 split_w_kernel(const W* __restrict__ w2, float* __restrict__ wf, int R,
                int K, int B, int KS, int T) {
@@ -168,23 +211,29 @@ split_w_kernel(const W* __restrict__ w2, float* __restrict__ wf, int R,
     const int k = 8 * ks + 2 * (lane & 3) + half, col = 8 * t + (lane >> 2);
     const float w =
         (k < K && col < B) ? to_f32(w2[((size_t)r * K + k) * B + col]) : 0.f;
-    const uint32_t hi = tf32(w);
     float* slot = wf + (e >> 1) * kSlot;
-    slot[half] = __uint_as_float(hi);
-    slot[2 + half] = __uint_as_float(tf32(w - __uint_as_float(hi)));
+    if (kBf16) {
+      reinterpret_cast<__nv_bfloat16*>(slot)[half] = __float2bfloat16_rn(w);
+      slot[2 + half] = 0.f;
+      if (half == 0) slot[1] = 0.f;
+    } else {
+      const uint32_t hi = tf32(w);
+      slot[half] = __uint_as_float(hi);
+      slot[2 + half] = __uint_as_float(tf32(w - __uint_as_float(hi)));
+    }
   }
 }
 
 // Launches split_w_kernel for all R replicas (wf holds R * w_frag_floats).
-template <typename W>
+template <typename W, bool kBf16>
 cudaError_t split_w(const void* w2, float* wf, int R, int K, int B,
                     cudaStream_t stream) {
   const int KS = k_steps(K);
   const size_t total = (size_t)R * KS * ((B + 7) / 8) * 64;
   const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
                                                        : 1024);
-  split_w_kernel<W><<<blocks, 256, 0, stream>>>(static_cast<const W*>(w2), wf,
-                                                R, K, B, KS, (B + 7) / 8);
+  split_w_kernel<W, kBf16><<<blocks, 256, 0, stream>>>(
+      static_cast<const W*>(w2), wf, R, K, B, KS, (B + 7) / 8);
   return cudaGetLastError();
 }
 
@@ -221,7 +270,7 @@ __device__ __forceinline__ void issue_step(float* st, const float* __restrict__ 
 // The warp's m-tile of the chunk: acc[t] holds the float64 sums of rows
 // (i, j_a) / (i, j_b), j_a = the warp's first j of the pass, j_b = j_a + 1,
 // and columns 8t .. 8t + 7, in the C fragment's order.
-template <int NT, bool kSplitW>
+template <int NT, Mode M>
 __device__ __forceinline__ void chunk_mma(double (&acc)[NT][4],
                                           const float* st, int warp,
                                           int lane) {
@@ -230,38 +279,66 @@ __device__ __forceinline__ void chunk_mma(double (&acc)[NT][4],
   const float* su = st + kJB * kRow;
   const float* sw = st + (kJB + kTI) * kRow;
   const int gid = lane >> 2, c = 2 * (lane & 3);
+  if constexpr (M == Mode::kBf16) {
+    // one m16n8k16 product per two 8-k steps s, s + 1: the thread's A
+    // registers hold (i, j_a) and (i, j_b) at k 8s + c + {0, 1}, then at
+    // 8 (s + 1) + c + {0, 1}; its B registers the two steps' slots
 #pragma unroll
-  for (int s = 0; s < kKS; ++s) {
-    const float2 uv =
-        *reinterpret_cast<const float2*>(su + gid * kRow + 8 * s + c);
-    const float2 av = *reinterpret_cast<const float2*>(sa + 8 * s + c);
-    const float2 bv = *reinterpret_cast<const float2*>(sa + kRow + 8 * s + c);
-    // A fragment: a0 (i, j_a, k), a1 (i, j_b, k), a2 (i, j_a, k'),
-    // a3 (i, j_b, k') with k, k' the thread's pair of k
-    const float x[4] = {fmaxf(av.x - uv.x, 0.f), fmaxf(bv.x - uv.x, 0.f),
-                        fmaxf(av.y - uv.y, 0.f), fmaxf(bv.y - uv.y, 0.f)};
-    uint32_t hi[4], lo[4];
+    for (int s = 0; s < kKS; s += 2) {
+      uint32_t x[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      hi[e] = tf32(x[e]);
-      lo[e] = tf32(x[e] - __uint_as_float(hi[e]));
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float* slot = sw + ((s * NT + t) * 32 + lane) * kSlot;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      if (kSplitW) {
-        const float4 w = *reinterpret_cast<const float4*>(slot);
-        mma_tf32(d, lo, w.x, w.y);
-        mma_tf32(d, hi, w.z, w.w);
-        mma_tf32(d, hi, w.x, w.y);
-      } else {  // bfloat16 weights: lo_w = 0
-        const float2 w = *reinterpret_cast<const float2*>(slot);
-        mma_tf32(d, lo, w.x, w.y);
-        mma_tf32(d, hi, w.x, w.y);
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * (s + h) + c;
+        const float2 uv = *reinterpret_cast<const float2*>(su + gid * kRow + k);
+        const float2 av = *reinterpret_cast<const float2*>(sa + k);
+        const float2 bv = *reinterpret_cast<const float2*>(sa + kRow + k);
+        x[2 * h] = bf16x2(fmaxf(av.x - uv.x, 0.f), fmaxf(av.y - uv.y, 0.f));
+        x[2 * h + 1] = bf16x2(fmaxf(bv.x - uv.x, 0.f), fmaxf(bv.y - uv.y, 0.f));
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][e] += (double)d[e];
+      for (int t = 0; t < NT; ++t) {
+        const float* slot = sw + ((s * NT + t) * 32 + lane) * kSlot;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(d, x, __float_as_uint(slot[0]),
+                 __float_as_uint(slot[NT * 32 * kSlot]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] += (double)d[e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kKS; ++s) {
+      const float2 uv =
+          *reinterpret_cast<const float2*>(su + gid * kRow + 8 * s + c);
+      const float2 av = *reinterpret_cast<const float2*>(sa + 8 * s + c);
+      const float2 bv = *reinterpret_cast<const float2*>(sa + kRow + 8 * s + c);
+      // A fragment: a0 (i, j_a, k), a1 (i, j_b, k), a2 (i, j_a, k'),
+      // a3 (i, j_b, k') with k, k' the thread's pair of k
+      const float x[4] = {fmaxf(av.x - uv.x, 0.f), fmaxf(bv.x - uv.x, 0.f),
+                          fmaxf(av.y - uv.y, 0.f), fmaxf(bv.y - uv.y, 0.f)};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = tf32(x[e]);
+        lo[e] = tf32(x[e] - __uint_as_float(hi[e]));
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float* slot = sw + ((s * NT + t) * 32 + lane) * kSlot;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        if (M == Mode::kTF32x3) {
+          const float4 w = *reinterpret_cast<const float4*>(slot);
+          mma_tf32(d, lo, w.x, w.y);
+          mma_tf32(d, hi, w.z, w.w);
+          mma_tf32(d, hi, w.x, w.y);
+        } else {  // bfloat16 weights: lo_w = 0
+          const float2 w = *reinterpret_cast<const float2*>(slot);
+          mma_tf32(d, lo, w.x, w.y);
+          mma_tf32(d, hi, w.x, w.y);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] += (double)d[e];
+      }
     }
   }
 }
@@ -273,11 +350,12 @@ __device__ __forceinline__ float pair_value(double sum, float bias) {
 
 // Every pair of the block's i-tile (rows i_tile .. i_tile + 7) with every j
 // below the extent n, over all K, for n-tiles t0 .. t0 + NT - 1 of the
-// replica's split W2 fragments wf (T n-tiles a k-step). After each pass of
-// 32 j, epi(pass, acc) sees the pre-bias float64 sums; the accumulators
-// then restart from zero. `ring` holds kStages * stage_floats(NT) floats; on
-// return every thread is past its last read of it.
-template <int NT, bool kSplitW, typename Epi>
+// replica's split W2 fragments wf (T n-tiles a k-step), products in mode M.
+// After each pass of 32 j, epi(pass, acc) sees the pre-bias float64 sums;
+// the accumulators then restart from zero. `ring` holds kStages *
+// stage_floats(NT) floats; on return every thread is past its last read of
+// it.
+template <int NT, Mode M, typename Epi>
 __device__ __forceinline__ void pair_passes(const float* __restrict__ a,
                                             const float* __restrict__ u,
                                             const float* __restrict__ wf,
@@ -312,8 +390,7 @@ __device__ __forceinline__ void pair_passes(const float* __restrict__ a,
     // a warp whose j_a lies at or past the extent skips the products
     // (warp-uniform); its pairs are never read
     if (step / nchunk * kJB + warp * kJW < n)
-      chunk_mma<NT, kSplitW>(acc, ring + (step % kStages) * kStage, warp,
-                             lane);
+      chunk_mma<NT, M>(acc, ring + (step % kStages) * kStage, warp, lane);
     if ((step + 1) % nchunk == 0) {
       epi(step / nchunk, acc);
 #pragma unroll

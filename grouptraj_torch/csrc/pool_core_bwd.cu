@@ -43,6 +43,14 @@
 // No float atomics: every sum has a fixed order, so the result is the same
 // from run to run.
 //
+// The bfloat16 mode (the TPU kernel's at JAX's default matmul precision)
+// splits W2 and runs the ties pass in K1's bfloat16 mode (pool_core.cuh),
+// so the == test stays exact, and tie_grads rounds gd (the entries of dq),
+// W2 and relu(a - u) to bfloat16 before its multiply-adds, as the TPU
+// kernel rounds dq, W2 and h1 in dh1 = dq W2^T and dW2 = h1^T dq. A product
+// of two bfloat16 values is exact in float32, so only the order of the
+// sums differs from it; db2 sums the unrounded gd, dz stays float32.
+//
 // Bound on an H100: the recompute is the forward's (pool_core_fwd.cu: the
 // pair products in 3xTF32 on the tensor cores beside the subtract, ReLU and
 // split of every (pair, k) on the CUDA cores); the tie entries add ~6 K
@@ -62,8 +70,9 @@ using namespace pool_core;
 
 // ---------------------------------------------------------------- 1. ties
 
-// The forward's blocks and tile (pool_core.cuh), f32 weights only.
-template <int NT>
+// The forward's blocks and tile (pool_core.cuh), f32 weights only, in the
+// forward's mode.
+template <int NT, bool kBf16>
 __global__ void __launch_bounds__(kThreads, min_blocks(NT))
 ties_kernel(const float* __restrict__ a, const float* __restrict__ u,
             const float* __restrict__ wf, const float* __restrict__ b2,
@@ -135,9 +144,10 @@ ties_kernel(const float* __restrict__ a, const float* __restrict__ u,
         }
     }
   };
-  pair_passes<NT, true>(a + row0 * K, u + row0 * K,
-                        wf + r * w_frag_floats(K, B), n, K, (B + 7) / 8,
-                        b0 / 8, i_tile, ring, match);
+  pair_passes<NT, mode_of<float>(kBf16)>(a + row0 * K, u + row0 * K,
+                                         wf + r * w_frag_floats(K, B), n, K,
+                                         (B + 7) / 8, b0 / 8, i_tile, ring,
+                                         match);
 
   if (recount == nullptr) return;
   // sum the warps' counts through the ring, now free, in warp order
@@ -196,14 +206,16 @@ inline size_t grads_smem_bytes(int N, int B) {
 //           gd[i, b] W2[k, b] [a_j - u_i > 0]
 //   dw2p[g, b] = sum over i, then j ascending, of gd[i, b] relu(a_j - u_i)
 //   db2p[g, b] = sum over i of (ties of (i, b)) gd[i, b]   (blockIdx.y == 0)
-// with gd = dpool / max(cnt, 1). With kStaged the block first copies the
+// with gd = dpool / max(cnt, 1); with kBf16 gd, W2 and relu(a_j - u_i)
+// are rounded to bfloat16 in the sums of du, da and dw2p (not in db2p).
+// With kStaged the block first copies the
 // scene's rows below its extent, W2's columns and gd to shared memory, so
 // an entry costs shared loads only; scenes too wide for that read them
 // from device memory (L2) instead. A warp fetches 32 bit-set words at once
 // (a lane each) and walks the non-zero ones in order by ballot and
 // shuffle. Every row below N is written (zeros where there is no entry);
 // the weight walk is skipped when dw2p is null.
-template <bool kStaged>
+template <bool kStaged, bool kBf16>
 __global__ void __launch_bounds__(kGradThreads)
 tie_grads_kernel(const float* __restrict__ a, const float* __restrict__ u,
                  const float* __restrict__ w2t, const float* __restrict__ valid,
@@ -242,6 +254,8 @@ tie_grads_kernel(const float* __restrict__ a, const float* __restrict__ u,
     const size_t q = (row0 + i) * B + b;
     return dpool[q] / fmaxf(cnt[q], 1.f);
   };
+  // an operand of the products, rounded to bfloat16 in that mode
+  auto op = [](float x) { return kBf16 ? bf16_round(x) : x; };
 
   const int n = scene_extent(valid + row0, sv, &s_n, N);
   const int nw = (n + 31) / 32;  // words that can hold a set bit
@@ -288,11 +302,11 @@ tie_grads_kernel(const float* __restrict__ a, const float* __restrict__ u,
             uint32_t word = __shfl_sync(0xffffffffu, mine, src);
             const int b = (q0 + src) / nw, base = (q0 + src) % nw * 32;
             const float4 wv = row4(w_s, w_g, b);
-            const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+            const float w[4] = {op(wv.x), op(wv.y), op(wv.z), op(wv.w)};
             while (word) {
               const int partner = base + __ffs(word) - 1;
               word &= word - 1;
-              const float gd = side ? gd_at(partner, b) : -gd_at(row, b);
+              const float gd = op(side ? gd_at(partner, b) : -gd_at(row, b));
               const float4 pv = row4(other_s, other_g, partner);
               const float p[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
@@ -334,16 +348,16 @@ tie_grads_kernel(const float* __restrict__ a, const float* __restrict__ u,
           hits = 0;
         }
         hits += __popc(word);
-        const float gd = gd_at(i, b);
+        const float gd = op(gd_at(i, b));
         const float4 uv = row4(u_s, u_g, i);
         while (word) {
           const int j = base + __ffs(word) - 1;
           word &= word - 1;
           const float4 av = row4(a_s, a_g, j);
-          acc[0] += gd * fmaxf(av.x - uv.x, 0.f);
-          acc[1] += gd * fmaxf(av.y - uv.y, 0.f);
-          acc[2] += gd * fmaxf(av.z - uv.z, 0.f);
-          acc[3] += gd * fmaxf(av.w - uv.w, 0.f);
+          acc[0] += gd * op(fmaxf(av.x - uv.x, 0.f));
+          acc[1] += gd * op(fmaxf(av.y - uv.y, 0.f));
+          acc[2] += gd * op(fmaxf(av.z - uv.z, 0.f));
+          acc[3] += gd * op(fmaxf(av.w - uv.w, 0.f));
         }
       }
     }
@@ -405,26 +419,28 @@ int pool_core_bwd_tie_words(int N) { return (N + 31) / 32; }
 // is null); wf: R * pool_core_bwd_w_frag_floats(K, B) f32 for the split
 // W2. dw2 [R, K, B] and db2 [R, B] may both be null: the weight gradients
 // are then skipped. recount [R*S, N, B] f32 may be null. All contiguous,
-// K % 4 == 0, 16-byte aligned. Returns the CUDA error of the first call
-// that failed (0 = cudaSuccess).
+// K % 4 == 0, 16-byte aligned. bf16 = 1 selects the bfloat16 mode (the
+// forward's), 0 the float32-exact one. Returns the CUDA error of the first
+// call that failed (0 = cudaSuccess).
 int pool_core_bwd(const float* a, const float* u, const float* w2,
                   const float* w2t, const float* b2, const float* valid,
                   const float* pooled, const float* cnt, const float* dpool,
                   uint32_t* ties, uint32_t* tiesT, float* dw2p, float* db2p,
                   float* da, float* du, float* dw2, float* db2,
                   float* recount, float* wf, int R, int S, int N, int K,
-                  int B, int device, void* stream) {
+                  int B, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R * S == 0 || N == 0 || B == 0 || K == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = R * S, NW = (N + 31) / 32;
 
-  if ((err = split_w<float>(w2, wf, R, K, B, st)) != cudaSuccess)
-    return (int)err;
+  err = bf16 ? split_w<float, true>(w2, wf, R, K, B, st)
+             : split_w<float, false>(w2, wf, R, K, B, st);
+  if (err != cudaSuccess) return (int)err;
   err = for_column_launches(B, [&](auto nt, int col0, int groups) {
     constexpr int NT = decltype(nt)::value;
-    auto kernel = ties_kernel<NT>;
+    auto kernel = bf16 ? ties_kernel<NT, true> : ties_kernel<NT, false>;
     const size_t smem =
         sizeof(float) * (kStages * (size_t)stage_floats(NT) + N);
     cudaError_t e = cudaFuncSetAttribute(
@@ -437,8 +453,11 @@ int pool_core_bwd(const float* a, const float* u, const float* w2,
   });
   if (err != cudaSuccess) return (int)err;
 
-  auto grads = grads_staged(N, B) ? tie_grads_kernel<true>
-                                  : tie_grads_kernel<false>;
+  const bool staged = grads_staged(N, B);
+  auto grads = bf16 ? (staged ? tie_grads_kernel<true, true>
+                              : tie_grads_kernel<false, true>)
+                    : (staged ? tie_grads_kernel<true, false>
+                              : tie_grads_kernel<false, false>);
   const size_t gsmem = grads_smem_bytes(N, B);
   err = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)gsmem);

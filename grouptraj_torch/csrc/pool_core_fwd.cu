@@ -22,6 +22,12 @@
 // pedestrian valid that is 10 us of split and ReLU and 5 us of bytes
 // against 13 us of mma at B=8 and 78 us at B=48: bound by the tensor
 // cores. Nothing of the [S, N, N, K] pair tensor reaches device memory.
+// In the bfloat16 mode (the TPU kernel's at JAX's default matmul
+// precision: relu(a - u) and W2 rounded to bfloat16, float32 accumulate)
+// the products are one pass at the bf16 rate (989 TFLOP/s) beside a
+// subtract, ReLU and round per (pair, k): 2 us of mma at B=8 and 13 us at
+// B=48 against 6 us of elementwise work and 5 us of bytes, so the CUDA
+// cores bound it at B=8 and the tensor cores at B=48.
 //
 // Design (pool_core.cuh, shared with the backward so that both compute
 // bit-equal pair values): one block of 16 warps per (replica*scene, 8-row
@@ -40,7 +46,7 @@ namespace {
 
 using namespace pool_core;
 
-template <int NT, typename W>
+template <int NT, typename W, bool kBf16>
 __global__ void __launch_bounds__(kThreads, min_blocks(NT))
 pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
                      const float* __restrict__ wf, const W* __restrict__ b2,
@@ -108,7 +114,7 @@ pool_core_fwd_kernel(const float* __restrict__ a, const float* __restrict__ u,
         }
       }
   };
-  pair_passes<NT, std::is_same<W, float>::value>(
+  pair_passes<NT, mode_of<W>(kBf16)>(
       a + row0 * K, u + row0 * K, wf + r * w_frag_floats(K, B), n, K,
       (B + 7) / 8, b0 / 8, i_tile, ring, fold);
 
@@ -145,12 +151,14 @@ template <typename W>
 cudaError_t launch(const float* a, const float* u, const void* w2,
                    const void* b2, const float* valid, float* wf,
                    float* pooled, float* cnt, int R, int S, int N, int K,
-                   int B, cudaStream_t stream) {
-  cudaError_t err = split_w<W>(w2, wf, R, K, B, stream);
+                   int B, bool bf16, cudaStream_t stream) {
+  cudaError_t err = bf16 ? split_w<W, true>(w2, wf, R, K, B, stream)
+                         : split_w<W, false>(w2, wf, R, K, B, stream);
   if (err != cudaSuccess) return err;
   return for_column_launches(B, [&](auto nt, int col0, int groups) {
     constexpr int NT = decltype(nt)::value;
-    auto kernel = pool_core_fwd_kernel<NT, W>;
+    auto kernel = bf16 ? pool_core_fwd_kernel<NT, W, true>
+                       : pool_core_fwd_kernel<NT, W, false>;
     const size_t smem =
         sizeof(float) * (kStages * (size_t)stage_floats(NT) + N);
     cudaError_t err = cudaFuncSetAttribute(
@@ -177,20 +185,21 @@ size_t pool_core_w_frag_floats(int K, int B) { return w_frag_floats(K, B); }
 // a, u: [R*S, N, K] f32; w2: [R, K, B] and b2: [R, B], both f32 (w_bf16 = 0)
 // or both bf16 (w_bf16 = 1); valid: [R*S, N] f32; wf: scratch of
 // R * pool_core_w_frag_floats(K, B) f32; pooled, cnt: [R*S, N, B] f32. All
-// contiguous, K % 4 == 0, 16-byte aligned. Returns the CUDA error of the
-// first launch that failed (0 = cudaSuccess).
+// contiguous, K % 4 == 0, 16-byte aligned. bf16 = 1 selects the bfloat16
+// mode of the product, 0 the float32-exact one. Returns the CUDA error of
+// the first launch that failed (0 = cudaSuccess).
 int pool_core_fwd(const float* a, const float* u, const void* w2,
                   const void* b2, const float* valid, float* wf,
                   float* pooled, float* cnt, int R, int S, int N, int K,
-                  int B, int w_bf16, int device, void* stream) {
+                  int B, int w_bf16, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R * S == 0 || N == 0 || B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = w_bf16 ? launch<__nv_bfloat16>(a, u, w2, b2, valid, wf, pooled, cnt,
-                                       R, S, N, K, B, st)
+                                       R, S, N, K, B, bf16 != 0, st)
                : launch<float>(a, u, w2, b2, valid, wf, pooled, cnt, R, S, N,
-                               K, B, st);
+                               K, B, bf16 != 0, st);
   return (int)err;
 }
 

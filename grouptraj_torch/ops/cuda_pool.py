@@ -16,11 +16,17 @@
 
 Each source note gives its kernel's bound and design; both kernels take
 their pair tile from ``csrc/pool_core.cuh``, so the backward recomputes the
-forward's values bit for bit. For CUDA tensors a wrapper checks the inputs,
-launches its kernel on PyTorch's current stream and counts the launch
-(``pool_core_fwd.launches``, ``pool_core_bwd.launches``); for CPU tensors
-it runs the plain PyTorch version in :mod:`grouptraj_torch.ops.pooling`.
-There is no fallback from a kernel to its plain version.
+forward's values bit for bit. Each kernel has two modes, as the TPU
+kernels have: float32-exact products (the default) and, with ``bf16``,
+bfloat16 operands with float32 accumulation (the TPU kernels' mode at
+JAX's default matmul precision; ``PoolCore`` takes it from
+:mod:`grouptraj_torch.ops.precision` through ``pooling._pool_fast``). For
+CUDA tensors a wrapper checks the inputs, launches its kernel on
+PyTorch's current stream and counts the launch by mode
+(``pool_core_fwd.launches`` and ``pool_core_fwd.launches_bf16``, the same
+on ``pool_core_bwd``); for CPU tensors it runs the plain PyTorch version in
+:mod:`grouptraj_torch.ops.pooling` in the same mode. There is no fallback
+from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ _MAX_SMEM = 232448       # bytes of shared memory one H100 block can use
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pool_core_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pool_core_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.pool_core_fwd.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.pool_core_fwd.restype = ctypes.c_int
     lib.pool_core_fwd_smem_bytes.argtypes = [i, i]   # N, B
     lib.pool_core_fwd_smem_bytes.restype = ctypes.c_size_t
@@ -57,7 +63,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("pool_core_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pool_core_bwd.argtypes = [p] * 19 + [i] * 6 + [p]
+    lib.pool_core_bwd.argtypes = [p] * 19 + [i] * 7 + [p]
     lib.pool_core_bwd.restype = ctypes.c_int
     lib.pool_core_bwd_smem_bytes.argtypes = [i, i]   # N, B
     lib.pool_core_bwd_smem_bytes.restype = ctypes.c_size_t
@@ -115,15 +121,17 @@ def _device_index(t: torch.Tensor) -> int:
 
 
 def pool_core_fwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
-                  b2: torch.Tensor, valid: torch.Tensor
+                  b2: torch.Tensor, valid: torch.Tensor, bf16: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replica-stacked pair core: a/u ``[R, S, N, K]`` f32, W2 ``[R, K, B]``
     and b2 ``[R, B]`` (f32 or bf16), valid ``[R, S, N]`` f32 ->
     (pooled, cnt) ``[R, S, N, B]`` f32. Rows at invalid i are undefined
-    (zeros past each scene's extent); callers re-mask them."""
+    (zeros past each scene's extent); callers re-mask them. ``bf16``
+    selects the bfloat16 mode (``relu(a_j − u_i)`` and W2 rounded to
+    bfloat16, float32 accumulation)."""
     R, S, N, K, B = _check(a, u, W2, b2, valid)
     if not a.is_cuda:
-        return pool_core(a, u, W2, b2, valid)
+        return pool_core(a, u, W2, b2, valid, bf16=bf16)
     lib = _lib()
     _check_smem(lib.pool_core_fwd_smem_bytes(N, B), N, B)
     pooled = torch.empty((R, S, N, B), dtype=torch.float32, device=a.device)
@@ -134,23 +142,27 @@ def pool_core_fwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
     err = lib.pool_core_fwd(
         a.data_ptr(), u.data_ptr(), W2.data_ptr(), b2.data_ptr(),
         valid.data_ptr(), wf.data_ptr(), pooled.data_ptr(), cnt.data_ptr(),
-        R, S, N, K, B, int(W2.dtype == torch.bfloat16),
+        R, S, N, K, B, int(W2.dtype == torch.bfloat16), int(bf16),
         _device_index(a), stream)
     if err:
         raise RuntimeError("pool_core_fwd launch failed: "
                            + lib.pool_core_fwd_error_string(err).decode())
-    pool_core_fwd.launches += 1
+    if bf16:
+        pool_core_fwd.launches_bf16 += 1
+    else:
+        pool_core_fwd.launches += 1
     return pooled, cnt
 
 
 pool_core_fwd.launches = 0
+pool_core_fwd.launches_bf16 = 0
 
 
 def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
                   b2: torch.Tensor, valid: torch.Tensor,
                   pooled: torch.Tensor, cnt: torch.Tensor,
                   dpool: torch.Tensor, weight_grads: bool = True,
-                  debug: Optional[dict] = None
+                  debug: Optional[dict] = None, bf16: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Backward of the pair core from the forward's arguments, its outputs
@@ -163,7 +175,11 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
     ``recount`` ``[R, S, N, B]`` (how many valid j it saw equal the forward's
     max — equal to ``cnt`` iff it recomputed the forward's values exactly)
     and ``ties`` ``[R, S, N, N, B]`` bool (the (i, j, b) it propagates
-    through). On CPU tensors both come from the plain version."""
+    through). On CPU tensors both come from the plain version. ``bf16``
+    selects the bfloat16 mode: the forward's recompute in that mode, and
+    the cotangent, W2 and ``relu(a_j − u_i)`` rounded to bfloat16 in the
+    products of ``dh1`` and ``dW2`` (``db2`` sums the unrounded cotangent).
+    """
     R, S, N, K, B = _check(a, u, W2, b2, valid, pooled=pooled, cnt=cnt,
                            dpool=dpool)
     if W2.dtype != torch.float32:
@@ -171,7 +187,8 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
                         f"weights are a serving-only input), got {W2.dtype}")
     if not a.is_cuda:
         da, du, dW2, db2 = pool_core_bwd_plain(a, u, W2, b2, valid, pooled,
-                                               cnt, dpool, debug=debug)
+                                               cnt, dpool, debug=debug,
+                                               bf16=bf16)
         return (da, du, dW2, db2) if weight_grads else (da, du, None, None)
     lib = _bwd_lib()
     _check_smem(max(lib.pool_core_bwd_smem_bytes(N, B),
@@ -198,12 +215,15 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
         b2.data_ptr(), valid.data_ptr(), pooled.data_ptr(), cnt.data_ptr(),
         dpool.data_ptr(), bits[0].data_ptr(), bits[1].data_ptr(),
         ptr(dW2p), ptr(db2p), da.data_ptr(), du.data_ptr(), ptr(dW2),
-        ptr(db2), ptr(recount), wf.data_ptr(), R, S, N, K, B,
+        ptr(db2), ptr(recount), wf.data_ptr(), R, S, N, K, B, int(bf16),
         _device_index(a), stream)
     if err:
         raise RuntimeError("pool_core_bwd launch failed: "
                            + lib.pool_core_bwd_error_string(err).decode())
-    pool_core_bwd.launches += 1
+    if bf16:
+        pool_core_bwd.launches_bf16 += 1
+    else:
+        pool_core_bwd.launches += 1
     if debug is not None:
         shifts = torch.arange(32, device=dev, dtype=torch.int32)
         ties = ((bits[0][..., None] >> shifts) & 1).bool()   # [R,S,i,B,NW,32]
@@ -214,13 +234,16 @@ def pool_core_bwd(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
 
 
 pool_core_bwd.launches = 0
+pool_core_bwd.launches_bf16 = 0
 
 
 class PoolCore(torch.autograd.Function):
-    """``pooled, cnt = PoolCore.apply(a, u, W2, b2, valid)``: the pair core
-    with its hand-written backward (K1 forward, K2 backward on CUDA tensors;
-    the plain versions on CPU tensors). ``cnt`` is not differentiable and
-    ``valid`` gets no gradient.
+    """``pooled, cnt = PoolCore.apply(a, u, W2, b2, valid[, bf16])``: the
+    pair core with its hand-written backward (K1 forward, K2 backward on
+    CUDA tensors; the plain versions on CPU tensors). ``cnt`` is not
+    differentiable and ``valid`` gets no gradient. ``bf16`` (default False)
+    is the mode of both kernels: the backward takes its own forward's,
+    whatever the precision setting says by then.
 
     Under ``torch.func.vmap`` the rule :meth:`vmap` moves each batched
     argument's vmapped dimension to the front, broadcasts an unbatched one
@@ -230,13 +253,15 @@ class PoolCore(torch.autograd.Function):
     the backward is one K2 launch with R = batch × R as well."""
 
     @staticmethod
-    def forward(a, u, W2, b2, valid):
-        return pool_core_fwd(a, u, W2, b2, valid)
+    def forward(a, u, W2, b2, valid, bf16=False):
+        return pool_core_fwd(a, u, W2, b2, valid, bf16=bool(bf16))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs, *output)
+        ctx.save_for_backward(*inputs[:5], *output)
         ctx.mark_non_differentiable(output[1])
+        ctx.bf16 = bool(inputs[5]) if len(inputs) > 5 else False
+        ctx.n_inputs = len(inputs)
 
     @staticmethod
     @once_differentiable
@@ -245,11 +270,11 @@ class PoolCore(torch.autograd.Function):
         need_w = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         da, du, dW2, db2 = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt,
                                          dpool.contiguous(),
-                                         weight_grads=need_w)
-        return da, du, dW2, db2, None
+                                         weight_grads=need_w, bf16=ctx.bf16)
+        return (da, du, dW2, db2) + (None,) * (ctx.n_inputs - 4)
 
     @staticmethod
-    def vmap(info, in_dims, a, u, W2, b2, valid):
+    def vmap(info, in_dims, a, u, W2, b2, valid, bf16=False):
         n = info.batch_size
 
         def fold(t, dim):
@@ -258,6 +283,6 @@ class PoolCore(torch.autograd.Function):
             return t.reshape(-1, *t.shape[2:]).contiguous()
 
         pooled, cnt = PoolCore.apply(*(fold(t, dim) for t, dim in zip(
-            (a, u, W2, b2, valid), in_dims)))
+            (a, u, W2, b2, valid), in_dims)), bf16)
         return ((pooled.view(n, -1, *pooled.shape[1:]),
                  cnt.view(n, -1, *cnt.shape[1:])), (0, 0))

@@ -16,7 +16,10 @@ Implementations (``impl``), all computing the same function:
 - ``kernel``: the same decomposition with the core in the hand-written
   CUDA kernels (:mod:`grouptraj_torch.ops.cuda_pool`, forward and
   backward joined by its ``PoolCore`` autograd function); on CPU tensors
-  those wrappers run :func:`pool_core` and :func:`pool_core_bwd_plain`;
+  those wrappers run :func:`pool_core` and :func:`pool_core_bwd_plain`.
+  Its product runs in float32 or, as the TPU kernel does at JAX's default
+  matmul precision, on bfloat16 operands: :mod:`grouptraj_torch.ops.
+  precision` selects the mode, read once a call;
 - ``auto``: ``kernel`` for CUDA tensors, ``fast`` otherwise.
 
 All four are differentiable: ``pair`` and ``fast`` by autograd (``amax``
@@ -32,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from grouptraj_torch.ops.linear import linear, mlp_forward
+from grouptraj_torch.ops.precision import use_bf16
 
 _NEG = -1e9  # mask value for the max (forward-exact for post-ReLU features)
 IMPLS = ("pair", "fast", "kernel", "auto")
@@ -69,7 +73,8 @@ def _pool_fast(params: dict, h: torch.Tensor, end_pos: torch.Tensor,
                valid: torch.Tensor, impl: str) -> torch.Tensor:
     """Decomposed PoolHiddenNet: per-ped ``a``/``u`` feed the N²-only core.
     W2/b2 reach the core in the weights' own dtype (the kernel upcasts
-    bfloat16 in-kernel)."""
+    bfloat16 in-kernel). The kernel route takes the precision setting's
+    mode (``use_bf16()``) as it stands at this call."""
     We = params["spatial_embedding"]["w"].float()             # [2, E]
     be = params["spatial_embedding"]["b"].float()
     l1, l2 = params["mlp_pre_pool"]["layers"]
@@ -85,15 +90,21 @@ def _pool_fast(params: dict, h: torch.Tensor, end_pos: torch.Tensor,
     if impl == "kernel" or (impl == "auto" and a.is_cuda):
         from grouptraj_torch.ops.cuda_pool import PoolCore
         pooled, _ = PoolCore.apply(a[None], u[None], W2[None], b2[None],
-                                   valid[None].float())
+                                   valid[None].float(), use_bf16())
         pooled = pooled[0]
     else:
         pooled, _ = pool_core(a, u, W2, b2, valid)
     return torch.where(valid[..., None] > 0, pooled, 0.0)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest, ties to even, as JAX's
+    ``astype(jnp.bfloat16)``) and back to its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def pool_core(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
-              b2: torch.Tensor, valid: torch.Tensor
+              b2: torch.Tensor, valid: torch.Tensor, bf16: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """N²-pair core of the decomposed pool, plain PyTorch:
     ``pooled = max_j(mask_j(relu(relu(a_j − u_i) @ W2 + b2)))`` and the tie
@@ -103,11 +114,17 @@ def pool_core(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
     a/u ``[..., S, N, K]``, W2 ``[..., K, B]``, b2 ``[..., B]``, valid
     ``[..., S, N]`` with matching (or broadcastable) leading replica dims
     -> (pooled, cnt) ``[..., S, N, B]`` in a's dtype. Rows at invalid i hold the
-    masked max; callers re-mask them."""
+    masked max; callers re-mask them. With ``bf16`` both operands of the
+    product, ``relu(a_j − u_i)`` and W2, are rounded to bfloat16 first (the
+    TPU kernel's mode at JAX's default matmul precision); their products
+    are then exact in float32 and only the sums round."""
     W2, b2 = W2.to(a.dtype), b2.to(a.dtype)
-    z = a.unsqueeze(-3) - u.unsqueeze(-2)                     # [.., S, i, j, K]
-    o = torch.relu(torch.relu(z) @ W2.unsqueeze(-3).unsqueeze(-3)
+    h1 = torch.relu(a.unsqueeze(-3) - u.unsqueeze(-2))        # [.., S, i, j, K]
+    if bf16:
+        h1, W2 = _bf16(h1), _bf16(W2)
+    o = torch.relu(h1 @ W2.unsqueeze(-3).unsqueeze(-3)
                    + b2[..., None, None, None, :])            # [.., S, i, j, B]
+    del h1
     o = o.masked_fill(~(valid[..., None, :, None] > 0), _NEG)
     pooled = o.amax(dim=-2)
     cnt = (o == pooled.unsqueeze(-2)).sum(dim=-2, dtype=a.dtype)
@@ -119,7 +136,7 @@ def pool_core_bwd_plain(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
                         pooled: torch.Tensor, cnt: torch.Tensor,
                         dpool: torch.Tensor,
                         ties: Optional[torch.Tensor] = None,
-                        debug: Optional[dict] = None
+                        debug: Optional[dict] = None, bf16: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """Backward of :func:`pool_core`, plain PyTorch, by the backward
@@ -138,12 +155,18 @@ def pool_core_bwd_plain(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
     replaces the ``[o == pooled]`` selection — how a comparison hands this
     function the selection another implementation of the forward made.
     ``debug``, when a dict, receives ``ties`` (the selection used, masks
-    applied) and ``recount`` (the number of valid j with ``o == pooled``)."""
+    applied) and ``recount`` (the number of valid j with ``o == pooled``).
+    With ``bf16`` the forward is recomputed in its bfloat16 mode and, as
+    the TPU kernel's backward does, ``dq`` and W2 are rounded to bfloat16
+    for ``dh1``, ``h1`` and ``dq`` for ``dW2``; ``db2`` sums the unrounded
+    ``dq``, and ``dz``, ``da`` and ``du`` stay float32."""
     W2, b2 = W2.to(a.dtype), b2.to(a.dtype)
     vj = valid[..., None, :, None] > 0                        # [.., S, 1, j, 1]
     vi = valid[..., :, None, None] > 0                        # [.., S, i, 1, 1]
     z = a.unsqueeze(-3) - u.unsqueeze(-2)                     # [.., S, i, j, K]
     h1 = torch.relu(z)
+    if bf16:
+        h1, W2 = _bf16(h1), _bf16(W2)
     o = torch.relu(h1 @ W2.unsqueeze(-3).unsqueeze(-3)
                    + b2[..., None, None, None, :])            # [.., S, i, j, B]
     eq = (o == pooled.unsqueeze(-2)) & vj
@@ -153,11 +176,13 @@ def pool_core_bwd_plain(a: torch.Tensor, u: torch.Tensor, W2: torch.Tensor,
         debug["recount"] = eq.sum(dim=-2, dtype=a.dtype)
     gd = dpool / torch.clamp(cnt, min=1.0)
     dq = gd.unsqueeze(-2) * sel                               # [.., S, i, j, B]
-    dz = (dq @ W2.unsqueeze(-3).unsqueeze(-3).transpose(-1, -2)) * (z > 0)
+    dqr = _bf16(dq) if bf16 else dq
+    dz = (dqr @ W2.unsqueeze(-3).unsqueeze(-3).transpose(-1, -2)) * (z > 0)
     da = dz.sum(dim=-3)
     du = -dz.sum(dim=-2)
     K, B = W2.shape[-2:]
     lead = W2.shape[:-2]
-    dW2 = h1.reshape(*lead, -1, K).transpose(-1, -2) @ dq.reshape(*lead, -1, B)
+    dW2 = h1.reshape(*lead, -1, K).transpose(-1, -2) \
+        @ dqr.reshape(*lead, -1, B)
     db2 = dq.reshape(*lead, -1, B).sum(dim=-2)
     return da, du, dW2, db2

@@ -17,7 +17,11 @@ versions, the ``pool_every_timestep`` decoder launching K1 on every decode
 step and K2 on every step of its backward, and a ``train()`` of the
 ``sgan-p`` preset with ``pool_every_timestep`` through a save and a resume;
 K1 and K2 through PoolCore's vmap rule at R = 4 against per-replica plain
-versions, and a 2-seed ``train_many`` through a save and a resume.
+versions, and a 2-seed ``train_many`` through a save and a resume; K1 and
+K2 in their bf16 mode (``grouptraj_torch.ops.precision``) against their
+plain versions in that mode, bit for bit on quantized inputs, and a
+training iteration and a per-step serving call under the "default"
+setting launching only the bf16 mode.
 Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
@@ -32,7 +36,9 @@ the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
 training iteration's losses 1e-4 relative; K3's outputs 1e-5 absolute and
 K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 48
 products in another order, accurate activations on both sides), and the same
-for K5 and K6.
+for K5 and K6. In the bf16 mode pooled and K2's four tensors 1e-5 of the
+reference's largest entry (the same exact bfloat16 products summed in
+another order).
 """
 
 import dataclasses
@@ -850,3 +856,132 @@ def test_train_many_on_card_saves_and_resumes(cuda, tmp_path, monkeypatch):
         assert again[s]["restore_ts"] == [4]
         assert len(again[s]["norm_g"]) == 6
         assert np.isfinite(again[s]["norm_d"]).all()
+
+
+# --------------------------------------- K1 / K2 in the bf16 mode
+
+
+def _assert_cnt_or_near_tie(cnt, ref, ref_cnt, a, u, W2, b2, valid,
+                            atol=1e-5):
+    """K1's bf16-mode cnt equals the plain version's on valid rows, but
+    where the two orders of summation resolved a near-tie differently:
+    there it lies between 1 and the number of valid j whose plain value is
+    within ``atol`` of the plain max (chip_smoke.check_kernel's rule)."""
+    bad = (cnt != ref_cnt) & (valid > 0)[..., None]
+    if not bad.any():
+        return
+    rnd = lambda t: t.bfloat16().float()
+    o = torch.relu(rnd(torch.relu(a.unsqueeze(-3) - u.unsqueeze(-2)))
+                   @ rnd(W2.float())[:, None, None]
+                   + b2.float()[:, None, None, None])
+    o = o.masked_fill(~(valid[..., None, :, None] > 0), -1e9)
+    near = ((o - ref.unsqueeze(-2)).abs() <= atol).sum(-2)
+    assert ((cnt >= 1) & (cnt <= near))[bad].all()
+
+
+@pytest.mark.parametrize("R,S,N,B,dtype", [
+    (1, 64, 64, 8, torch.float32), (4, 32, 64, 48, torch.float32),
+    (1, 64, 64, 48, torch.bfloat16)])
+def test_bf16_mode_kernels_match_plain(cuda, R, S, N, B, dtype):
+    """K1 and K2 with ``bf16=True`` against their plain versions in the
+    same mode (K2 on its own selection; K1's cnt equal but at near-ties),
+    counted apart from the exact mode's launches; the mode moves pooled
+    off the exact mode's."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    a, u, W2, b2, valid = _inputs(cuda, R, S, N, B, seed=N + B, dtype=dtype)
+    counts = lambda: (pool_core_fwd.launches, pool_core_fwd.launches_bf16,
+                      pool_core_bwd.launches, pool_core_bwd.launches_bf16)
+    before = counts()
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid, bf16=True)
+    ref, ref_cnt = pool_core(a, u, W2, b2, valid, bf16=True)
+    rows = valid > 0
+    assert (pooled - ref)[rows].abs().max().item() <= 1e-5 * max(
+        1.0, ref[rows].abs().max().item())
+    _assert_cnt_or_near_tie(cnt, ref, ref_cnt, a, u, W2, b2, valid)
+    assert (pooled - pool_core_fwd(a, u, W2, b2, valid)[0])[rows].abs() \
+        .max().item() > 0
+    if dtype == torch.float32:
+        dpool = torch.randn_like(pooled)
+        dbg = {}
+        out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool,
+                            debug=dbg, bf16=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dbg["recount"][rows], cnt[rows])
+        ref = pool_core_bwd_plain(a, u, W2, b2, valid, pooled, cnt, dpool,
+                                  ties=dbg["ties"], bf16=True)
+        for x, r in zip(out, ref):
+            assert (x - r).abs().max().item() <= 1e-5 * max(
+                1.0, r.abs().max().item())
+    bwd = int(dtype == torch.float32)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2],
+                        before[3] + bwd)
+
+
+def test_bf16_mode_bit_equal_on_quantized_inputs(cuda):
+    """Inputs exact in bfloat16 whose products and sums float32 adds
+    exactly: K1 in the bf16 mode equals its plain version bit for bit, and
+    K2 on the plain version's own selection (the cotangent's shares among
+    ties exact too) equals the plain backward bit for bit."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    g = torch.Generator().manual_seed(3)
+    q = lambda lo, hi, den, *s: (torch.randint(lo, hi + 1, s, generator=g)
+                                 / den).to(cuda)
+    S, N, B = 8, 40, 8
+    a, u = q(-4, 4, 2, 1, S, N, 512), q(-4, 4, 2, 1, S, N, 512)
+    W2, b2 = q(-1, 1, 4, 1, 512, B), q(-4, 4, 2, 1, B)
+    valid = torch.ones(1, S, N, device=cuda)
+    pooled, cnt = pool_core_fwd(a, u, W2, b2, valid, bf16=True)
+    ref, ref_cnt = pool_core(a, u, W2, b2, valid, bf16=True)
+    assert torch.equal(pooled, ref) and torch.equal(cnt, ref_cnt)
+    assert ((cnt > 1) & (pooled > 0)).any()
+    dpool = q(-8, 8, 8, 1, S, N, B) * cnt.clamp(min=1)
+    out = pool_core_bwd(a, u, W2, b2, valid, pooled, cnt, dpool, bf16=True)
+    ref = pool_core_bwd_plain(a, u, W2, b2, valid, ref, ref_cnt, dpool,
+                              bf16=True)
+    for x, r in zip(out, ref):
+        assert torch.equal(x, r)
+
+
+def test_bf16_setting_switches_the_paths(cuda):
+    """Under ``default_matmul_precision("default")`` a training iteration
+    (K1 x4, K2 x3) and a per-step serving call (K1 on the context and
+    every decode step) launch K1/K2 in the bf16 mode only; outside it the
+    exact mode only."""
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.precision import default_matmul_precision
+    from grouptraj_torch.serve import Predictor
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import init_train_state, train_iterations
+    counts = lambda: (pool_core_fwd.launches, pool_core_fwd.launches_bf16,
+                      pool_core_bwd.launches, pool_core_bwd.launches_bf16)
+    cfg = ModelConfig()
+    tcfg = dataclasses.replace(TrainConfig(), best_k=4)
+    data = synthetic_device_data(32, 16, device=cuda)
+    idx = torch.arange(16, device=cuda).reshape(1, 2, 8)
+    for name, bf16 in (("default", True), ("highest", False)):
+        state = init_train_state(cfg, tcfg, device=cuda)
+        before = counts()
+        with default_matmul_precision(name):
+            out = train_iterations(state, data, idx, cfg, tcfg,
+                                   generator=torch.Generator(cuda)
+                                   .manual_seed(0))
+        fwd, bwd = (0, 4) if bf16 else (4, 0), (0, 3) if bf16 else (3, 0)
+        assert counts() == (before[0] + fwd[0], before[1] + fwd[1],
+                            before[2] + bwd[0], before[3] + bwd[1]), name
+        assert all(torch.isfinite(v).all() for v in out.values())
+    pet = ModelConfig(pool_every_timestep=True)
+    g = init_train_state(pet, tcfg, device=cuda).g
+    p = Predictor({k: v.detach() for k, v in g.state_dict().items()}, pet,
+                  num_samples=4, param_dtype=None, device=cuda)
+    rng = np.random.default_rng(0)
+    scenes = [np.cumsum(rng.normal(0, 0.4, (n, 8, 2)), 1).astype(np.float32)
+              for n in (3, 9, 14)]
+    before = counts()
+    with default_matmul_precision("default"):
+        out = p.predict_batch(scenes)
+    after = counts()
+    assert after[0] == before[0] and after[1] >= before[1] + 1 + pet.pred_len
+    assert all(np.isfinite(o).all() for o in out)

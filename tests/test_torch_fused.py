@@ -30,6 +30,16 @@ from grouptraj_torch.ops import lstm as TL
 JL = importlib.import_module("grouptraj.ops.lstm")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
     orig = PF.pl.pallas_call

@@ -22,6 +22,7 @@ folded), so the port's two routes agree to 1e-5, not bit for bit.
 
 import copy
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -58,6 +59,24 @@ S, N = 4, 6
 JCFG = JaxModelConfig(pool_impl="fast", **NARROW)
 JTCFG = JaxTrainConfig(**TRAIN)
 CFG, TCFG = ModelConfig(**NARROW), TrainConfig(**TRAIN)
+
+# the references skip LLVM's expensive passes, which changes no value;
+# XLA's backend optimization level 0 (test_torch_presets.py's cheaper
+# pipeline) is not used: it moves the rounding noise of the inter-group
+# attention vectors' gradients, which Adam's first step turns into moves
+# of up to lr, beyond this file's 5% of lr
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_llvm_disable_expensive_passes=True))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x):
@@ -133,8 +152,8 @@ def jax_fused():
         out["scores"] = np.asarray(discriminator_forward(
             state.d_params, JCFG, traj, traj_rel, b["valid"], impl="fused"))
         assert traced == {"lstm": 2, "decoder": 1}
-        d_step = jax.jit(build_d_step(JCFG, JTCFG, "fused"))
-        g_step = jax.jit(build_g_step(JCFG, JTCFG, "fused"))
+        d_step = _jit(build_d_step(JCFG, JTCFG, "fused"))
+        g_step = _jit(build_g_step(JCFG, JTCFG, "fused"))
         state, ld = d_step(state, batch, key_d)
         state, lg = g_step(state, batch, key_g)
         # d: G encoder, D encoder | G decode; g: G encoder, D encoder |

@@ -28,6 +28,7 @@ their own size, 7e-8 of G's largest moment; every other tensor is within
 port-written file: weights 1e-6 absolute.
 """
 
+import functools
 import os
 import shutil
 import subprocess
@@ -69,6 +70,11 @@ TRAIN = dict(dataset_name="toy", batch_size=S, num_epochs=0,
              steps_per_dispatch=2, n_buckets=1, bf16_nograd=False, seed=SEED)
 JCFG, CFG = JaxModelConfig(**NARROW), ModelConfig(**NARROW)
 RTOL = 1e-5
+
+# the references compile with XLA's cheaper CPU pipeline (as
+# test_torch_presets.py's do), which changes no value beyond the last bits
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -399,8 +405,8 @@ def test_port_file_steps_on_in_grouptraj(runs, data_root):
     draws = [{"d": [d_draw(key_d, 8)], "g": [g_draw(key_g, 8, 3)]}]
     TS.train_iterations(state, data, idx, CFG, tcfg, draws=draws)
     jb = [{k: v.numpy() for k, v in b.items()} for b in batches]
-    jstate, _ = jax.jit(build_d_step(JCFG, jtcfg))(jstate, jb[0], key_d)
-    jstate, _ = jax.jit(build_g_step(JCFG, jtcfg))(jstate, jb[1], key_g)
+    jstate, _ = _jit(build_d_step(JCFG, jtcfg))(jstate, jb[0], key_d)
+    jstate, _ = _jit(build_g_step(JCFG, jtcfg))(jstate, jb[1], key_g)
     for module, params, kind in ((state.g, jstate.g_params, "generator"),
                                  (state.d, jstate.d_params,
                                   "discriminator")):

@@ -17,6 +17,16 @@ from grouptraj_torch import losses as TL
 K, S, N, T = 3, 4, 5, 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

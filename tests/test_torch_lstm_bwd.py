@@ -22,6 +22,16 @@ JL = importlib.import_module("grouptraj.ops.lstm")
 H, B, T = 8, 7, 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -26,6 +26,16 @@ from grouptraj_torch.ops import cuda_lstm_proj as CP
 from grouptraj_torch.ops import lstm as TL
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def traced(monkeypatch):
     """pallas_call in interpret mode; the list counts the kernels traced."""

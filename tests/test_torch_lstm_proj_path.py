@@ -23,6 +23,7 @@ a learning rate.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -58,6 +59,21 @@ S, N = 4, 6
 JCFG = JaxModelConfig(pool_impl="fast", **NARROW)
 JTCFG = JaxTrainConfig(**TRAIN)
 CFG, TCFG = ModelConfig(**NARROW), TrainConfig(**TRAIN)
+
+# the references compile with XLA's cheaper CPU pipeline (as
+# test_torch_presets.py's do), which changes no value beyond the last bits
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x):
@@ -122,8 +138,8 @@ def jax_pallas():
         out["scores"] = np.asarray(discriminator_forward(
             state.d_params, JCFG, traj, traj_rel, b["valid"], impl="pallas"))
         assert len(traced) == 2                  # the two encoders, forward
-        d_step = jax.jit(build_d_step(JCFG, JTCFG, "pallas"))
-        g_step = jax.jit(build_g_step(JCFG, JTCFG, "pallas"))
+        d_step = _jit(build_d_step(JCFG, JTCFG, "pallas"))
+        g_step = _jit(build_g_step(JCFG, JTCFG, "pallas"))
         state, ld = d_step(state, batch, key_d)
         state, lg = g_step(state, batch, key_g)
         # d: G encoder, D encoder and its backward; g: both encoders and

@@ -57,6 +57,16 @@ from grouptraj.ops.lstm import lstm_scan as jax_lstm_scan
 from grouptraj_torch.ops.lstm import _fused_fwd_plain, lstm_proj_fwd_plain
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 -> nearest TF32 value, ties away from zero (cvt.rna)."""
     bits = x.contiguous().view(torch.int32)

@@ -29,6 +29,16 @@ from grouptraj_torch.ops.pooling import pool_core, pool_hidden_net
 PP = importlib.import_module("grouptraj.ops.pallas_pool")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
     orig = PP.pl.pallas_call

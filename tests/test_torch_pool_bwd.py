@@ -17,6 +17,7 @@ as the callers' re-mask makes them; that the port ignores a non-zero one
 there is checked separately.
 """
 
+import functools
 import importlib
 
 import jax
@@ -35,6 +36,21 @@ from grouptraj_torch.ops.pooling import (
 
 PP = importlib.import_module("grouptraj.ops.pallas_pool")
 TOL = {"da": 1e-5, "du": 1e-5, "dW2": 1e-4, "db2": 1e-4}
+
+# the references compile with XLA's cheaper CPU pipeline (as
+# test_torch_presets.py's do), which changes no value beyond the last bits
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -100,7 +116,7 @@ def _cotangent(valid, B, seed=11):
             ).astype(np.float32)
 
 
-@jax.jit
+@_jit
 def _jax_vjp_one(a, u, W2, b2, valid, dpool):
     _, vjp = jax.vjp(lambda *x: jax_pool_core(*x, valid), a, u, W2, b2)
     return vjp(dpool)
@@ -115,7 +131,7 @@ def _jax_vjp(a, u, W2, b2, valid, dpool):
     return [np.stack(g) for g in zip(*outs)]
 
 
-@jax.jit
+@_jit
 def _pallas_bwd(a, u, W2, b2, valid, dpool):
     """The TPU kernels' forward and backward (interpreted), jitted once
     per shape: cases of equal shapes share the traced kernels."""
@@ -259,7 +275,7 @@ def pool_hidden_net_case():
     def jax_loss(p, h, pos):
         return jnp.sum(jax_pool_hidden_net(p, h, pos, valid, impl="pair") * w)
 
-    grads = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(p, h, pos)
+    grads = _jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(p, h, pos)
     return p, h, pos, valid, w, grads
 
 

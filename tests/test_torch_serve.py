@@ -33,6 +33,16 @@ CKPT = "models/grouptraj/zara1_12_with_model.pt"
 K = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def zoo():
     ckpt = jax_load(CKPT)

@@ -22,6 +22,7 @@ loss stays within 5% (bfloat16 decode of the fake sample).
 
 import copy
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -53,6 +54,24 @@ TRAIN = dict(best_k=3, batch_size=4, bf16_nograd=False)
 S, N, ITERS = 4, 6, 3
 JCFG, JTCFG = JaxModelConfig(**NARROW), JaxTrainConfig(**TRAIN)
 CFG, TCFG = ModelConfig(**NARROW), TrainConfig(**TRAIN)
+
+# the references skip LLVM's expensive passes, which changes no value;
+# XLA's backend optimization level 0 (test_torch_presets.py's cheaper
+# pipeline) is not used: it moves the rounding noise of the inter-group
+# attention vectors' gradients, which Adam's first step turns into moves
+# of up to lr, beyond this file's 5% of lr
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_llvm_disable_expensive_passes=True))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: one torch thread a process keeps the workers of
+    a parallel test run from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x):
@@ -97,8 +116,8 @@ def jax_run(jax_state):
     after each iteration the losses and both parameter trees."""
     state = jax_state
     batch = synthetic_batch(S, N, JCFG.obs_len, JCFG.pred_len, seed=5)
-    d_step = jax.jit(build_d_step(JCFG, JTCFG))
-    g_step = jax.jit(build_g_step(JCFG, JTCFG))
+    d_step = _jit(build_d_step(JCFG, JTCFG))
+    g_step = _jit(build_g_step(JCFG, JTCFG))
     init = (_np_state(state.g_params, "generator"),
             _np_state(state.d_params, "discriminator"))
     history = []
@@ -259,7 +278,7 @@ def test_generator_forward_matches_jax(jax_run, jax_state):
     from grouptraj.models import generator_forward as jax_generator_forward
     init, arrays, _ = jax_run
     _, _, d_draw, _ = _draws(0)
-    ref = jax.jit(lambda g, *a: jax_generator_forward(g, JCFG, *a))(
+    ref = _jit(lambda g, *a: jax_generator_forward(g, JCFG, *a))(
         jax_state.g_params, arrays["obs"], arrays["obs_rel"],
         arrays["group"], arrays["valid"], jax.random.PRNGKey(1),
         d_draw["noise"].numpy())
@@ -357,8 +376,8 @@ def test_other_models_one_iteration_match_jax(model):
         jax.tree_util.tree_leaves(jax.device_get(state.g_params))))
     batch = synthetic_batch(S, N, jcfg.obs_len, jcfg.pred_len, seed=5)
     key_d, key_g, d_draw, g_draw = _draws(0)
-    state, ld = jax.jit(build_d_step(jcfg, JTCFG))(state, batch, key_d)
-    state, lg = jax.jit(build_g_step(jcfg, JTCFG))(state, batch, key_g)
+    state, ld = _jit(build_d_step(jcfg, JTCFG))(state, batch, key_d)
+    state, lg = _jit(build_g_step(jcfg, JTCFG))(state, batch, key_g)
     ref_losses = {k: float(v) for k, v in {**ld, **lg}.items()}
     assert ref_losses["norm_d"] > 0 and ref_losses["norm_g"] > 0
 
