@@ -115,7 +115,18 @@ Phases, each of which fails the run on any error:
    train_many of 4 seeds on a synthetic split (batch 64, best_k 20, 3
    buckets) for 20 iterations with its launches, resumed from its files
    to 30;
-11. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
+11. options: the MLP options of ModelConfig on the ``gat`` preset at
+   full width, from the training CLI's flags ``--batch_norm 1``,
+   ``--dropout1 0.2`` and ``--dropout 0.2``, and ``activation=
+   'leakyrelu'``: a k=20 serving call in eval mode at S=64/N=64, one
+   training iteration on 'fused' against the plain kernels and against
+   the CPU with one set of keep-masks, 3 iterations on 'fused' and 1 on
+   'pallas' (``--dropout`` at N=16) with launches, ms, peak memory and
+   busy share; the dropout1 g-step's per-sample forward (vmap over the 20
+   samples) runs K3/K4 at 81,920 folded rows, held against their plain
+   versions at that shape and timed beside their bounds, and K1/K2 once,
+   unbatched (options_phase);
+12. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
    matmul precision; ``grouptraj_torch.ops.precision``) against their
    plain versions in that mode at S=64/N=64/B=8, S=256/N=16/B=8,
    S=128/N=64/B=48, S=1,280/N=64/B=8 and R=4/S=128/N=64/B=48 (kernel_bf16_phase,
@@ -1519,12 +1530,12 @@ def eval_phase(batches):
 
 # ----------------------------------------------------------------- train
 
-def _grad_report(what, names, got, ref):
+def _grad_report(what, names, got, ref, floor=1e-6, rtol=TRAIN_GRAD_RTOL):
     """Largest per-tensor max |Δ| / max |ref| over the gradient tensors;
-    fails beyond TRAIN_GRAD_RTOL. A tensor whose gradient is zero to
-    rounding (the inter-group attention vectors: ~1e-10 beside 1e-2
-    elsewhere) is measured against 1e-6 of the largest gradient entry of
-    its network instead of its own."""
+    fails beyond ``rtol``. A tensor whose gradient is zero to rounding
+    (the inter-group attention vectors: ~1e-10 beside 1e-2 elsewhere) is
+    measured against ``floor`` of the largest gradient entry of its
+    network instead of its own."""
     import torch
     ref = [r.to(g.device) for g, r in zip(got, ref)]
     top = {net: max(r.abs().max().item() for n, r in zip(names, ref)
@@ -1534,14 +1545,14 @@ def _grad_report(what, names, got, ref):
         if not torch.isfinite(g).all():
             fail(f"{what}: gradient of {name} is not finite")
         zero += int(r.abs().max().item() == 0)
-        scale = max(r.abs().max().item(), 1e-6 * top[name[0]], 1e-30)
+        scale = max(r.abs().max().item(), floor * top[name[0]], 1e-30)
         rel = (g - r).abs().max().item() / scale
         if rel > worst:
             worst, worst_name = rel, name
     print(f"{what}: {len(names)} gradient tensors ({zero} all-zero; largest "
           f"entry D {top['D']:.3e}, G {top['G']:.3e}), worst max|d|/max|ref|"
-          f" = {worst:.3e} ({worst_name}; tolerance {TRAIN_GRAD_RTOL})")
-    if not worst <= TRAIN_GRAD_RTOL:
+          f" = {worst:.3e} ({worst_name}; tolerance {rtol})")
+    if not worst <= rtol:
         fail(f"{what}: parameter gradients disagree")
     if top["D"] == 0 or top["G"] == 0:
         fail(f"{what}: a network's gradient is zero everywhere: nothing "
@@ -2849,6 +2860,316 @@ def many_phase(rng, smi):
 
 # ----------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- options
+
+OPT_ITERS = {"fused": 3, "pallas": 1}   # timed iterations a route
+
+
+def _option_draws(cfg, tcfg, S, N, gen):
+    """One iteration's draws with its keep-masks on tape -> (draws,
+    replay): ``replay(device)`` gives the same draws again (masks
+    replayed, on ``device``)."""
+    from grouptraj_torch.ops.linear import (
+        DrawnMasks, InjectedMasks, KeepMasks,
+    )
+    from grouptraj_torch.train import steps as TS
+
+    class Taped(KeepMasks):
+        """Draws from ``gen`` and keeps every mask, so that a reference
+        run can replay them."""
+
+        def __init__(self):
+            self.src, self.tape = DrawnMasks(gen), []
+
+        def keep(self, shape, keep, device):
+            self.tape.append(self.src.keep(shape, keep, device))
+            return self.tape[-1]
+
+    dev = "cuda"
+    d = TS.d_draws(cfg, S, N, gen, dev)
+    g = TS.g_draws(cfg, tcfg, S, N, gen, dev)
+    sample = None
+    if cfg.dropout or cfg.dropout1:
+        stacked = TS.stacked_sample_masks(cfg, tcfg.best_k, S, N, gen, dev)
+        sample = [[m[i] for m in stacked] for i in range(tcfg.best_k)]
+    tapes = [Taped(), Taped()]
+    draws = dict(d=dict(d, masks=tapes[0]),
+                 g=dict(g, sample_masks=sample, d_masks=tapes[1]))
+
+    def replay(device):
+        mv = lambda t: t.to(device) if hasattr(t, "to") else t
+        return dict(
+            d={**{k: mv(v) for k, v in d.items()},
+               "masks": InjectedMasks([mv(m) for m in tapes[0].tape])},
+            g={**{k: mv(v) for k, v in g.items()},
+               "sample_masks": None if sample is None else
+               [[mv(m) for m in ms] for ms in sample],
+               "d_masks": InjectedMasks([mv(m) for m in tapes[1].tape])})
+    return draws, replay
+
+
+def _option_iteration(state, batch, cfg, tcfg, draws, impl):
+    """Losses and gradients of one d-step and one g-step from ``state``
+    with the given draws (masks included), nothing updated."""
+    from grouptraj_torch.train.steps import d_gradients, g_gradients
+    ld, gd = d_gradients(state, batch, cfg, tcfg, impl=impl, **draws["d"])
+    lg, gg = g_gradients(state, batch, cfg, tcfg, impl=impl, **draws["g"])
+    names = [f"D.{k}" for k, _ in state.d.named_parameters()] \
+        + [f"G.{k}" for k, _ in state.g.named_parameters()]
+    return {**ld, **lg}, names, list(gd) + list(gg)
+
+
+class _RecordedKw(_Recorded):
+    """:class:`_Recorded` for a wrapper called with keywords: ``record``
+    gets them too."""
+
+    def __call__(self, *args, **kw):
+        self.record(self.fn, args, kw)
+        return self.fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def _kernel_calls():
+    """Within the block K1's and K2's wrappers record the replica count R
+    of every call and K3's wrapper the (T, rows, variant, residuals) of
+    every call. Yields ``(pool, lstm)``: pool a list of (kind, R), lstm a
+    list of those tuples."""
+    from grouptraj_torch.ops import cuda_lstm, cuda_pool
+    fwd, bwd = cuda_pool.pool_core_fwd, cuda_pool.pool_core_bwd
+    pool, lstm = [], []
+
+    def record(fn, args):
+        pool.append(("K1" if fn is fwd else "K2", args[0].shape[0]))
+
+    def record_k3(fn, args, kw):
+        gx, h0 = kw.get("gx"), args[1]
+        lstm.append((gx.shape[0] if gx is not None else kw["T"],
+                     h0.shape[0], "gx" if gx is not None else "decoder",
+                     kw.get("save", False)))
+
+    with _swapped(cuda_pool, pool_core_fwd=_Recorded(fwd, record),
+                  pool_core_bwd=_Recorded(bwd, record)), \
+            _swapped(cuda_lstm, lstm_fused_fwd=_RecordedKw(
+                cuda_lstm.lstm_fused_fwd, record_k3)):
+        yield pool, lstm
+
+
+def options_phase(batches, noises, smi):
+    """The MLP options of ModelConfig on the ``gat`` preset at full width
+    (G H=32, pool 48→512→8, GAT 72→16→24; D H=48, pool 64→512→48), each
+    from the first seed whose discriminator is alive, configured from the
+    training CLI's flags: ``--batch_norm 1``, ``--dropout1 0.2``,
+    ``--dropout 0.2`` (the JAX package's own test values), and
+    ``activation='leakyrelu'``. For each:
+
+    (a) serving: one k=20 ``Predictor.predict_batch`` at S=64/N=64 in eval
+        mode (BN on the batch's statistics, no dropout) with its launches,
+        against the plain pool and, on four small scenes, the CPU
+        (positions within SERVE_ATOL); ms per call and peak memory;
+    (b) training (batch 64, best_k 20; S=64/N=64, with ``--dropout``
+        S=64/N=16, since its pool's pair path under the per-sample vmap
+        holds [20, S, N, N, 512] slabs): one iteration's losses and
+        gradients on 'fused' with every kernel against the plain pool and
+        the plain LSTMs on the card, with one set of keep-masks (taped,
+        replayed), and on a 4-scene N=16 batch against the CPU; then
+        OPT_ITERS['fused'] iterations of train_iterations on 'fused' and
+        OPT_ITERS['pallas'] on 'pallas' with their launches, ms per
+        iteration, peak memory, and the busy share of a 'fused' iteration.
+    With ``--dropout1`` the pool stays decomposed: the g-step's per-sample
+    forward (torch.func.vmap over the 20 samples) runs the decoder's K3/K4
+    at 20·S·N rows through the LSTM Functions' vmap rule, held against
+    their plain versions at that shape and timed beside their bounds; its
+    pool runs K1/K2 once, unbatched (R = 1): the pool's inputs are the
+    same for every sample, the first draw comes after it. Fails if K1,
+    K2, K3 or K4 is launched 0 times on the dropout1 'fused' path, or K5
+    or K6 on a 'pallas' path. -> (paths' launches, K3/K4 timings at the
+    folded rows)."""
+    import copy
+    import numpy as np
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.serve import Predictor
+    from grouptraj_torch.train import cli
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    from grouptraj_torch.train.steps import (
+        train_iterations, train_state_from_modules,
+    )
+
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig()
+    f32 = dataclasses.replace(tcfg, bf16_nograd=False)
+    S = tcfg.batch_size
+    from_flags = lambda *flags: cli.configs_from_args(
+        cli.build_parser().parse_args(list(flags)))[0]
+    configs = {"batch_norm": from_flags("--batch_norm", "1"),
+               "dropout1": from_flags("--dropout1", "0.2"),
+               "dropout": from_flags("--dropout", "0.2"),
+               "leakyrelu": dataclasses.replace(ModelConfig(),
+                                                activation="leakyrelu")}
+    widths = {"dropout": 16}
+    data = {N: synthetic_device_data(256, N, seed=7 + N, device="cuda")
+            for N in (64, 16)}
+    small = gather_batch(synthetic_device_data(16, 16, seed=9,
+                                               device="cuda"),
+                         torch.arange(4, device="cuda"), 8)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sc, gr = batches["S64_N64"]
+    z = noises["S64_N64"]
+    few = [i for i, s in enumerate(sc) if s.shape[0] <= 16][:4]
+    few_sc, few_gr = [sc[i] for i in few], [gr[i] for i in few]
+    z_few = z[:, :4, :16].contiguous()
+    paths, folded = {}, {}
+    for name, cfg in configs.items():
+        N = widths.get(name, 64)
+        idx = torch.randint(0, 256, (OPT_ITERS["fused"] + 1, 2, S),
+                            generator=gen, device="cuda")
+        batch = gather_batch(data[N], idx[0, 0], 8)
+        state, seed, alive = alive_state(cfg, tcfg, batch, gen)
+        print(f"options {name}: seed {seed} (D positive on "
+              f"{100 * alive:.0f}%), batch_norm={cfg.batch_norm} "
+              f"activation={cfg.activation} dropout={cfg.dropout} "
+              f"dropout1={cfg.dropout1}; {smi}")
+
+        # (a) serving
+        sd = {k_: v.detach() for k_, v in state.g.state_dict().items()}
+        p = Predictor(sd, cfg, num_samples=K, param_dtype=None,
+                      device="cuda")
+        p.predict_batch(sc, gr, noises=z)                      # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = p.predict_batch(sc, gr, noises=z)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        paths[f"serve_{name}"] = all_counts()
+        if not all(np.isfinite(o).all() and o.shape == (K, s.shape[0],
+                                                        cfg.pred_len, 2)
+                   for o, s in zip(out, sc)):
+            fail(f"options serve {name}: outputs not finite or of the "
+                 "wrong shape")
+        with plain_pool_kernels():
+            ref = p.predict_batch(sc, gr, noises=z)
+        _positions_report(f"options serve {name} S64_N64 kernel vs plain "
+                          "pool", out, ref)
+        host = Predictor(sd, cfg, num_samples=K, param_dtype=None,
+                         device="cpu")
+        _positions_report(f"options serve {name} S4_N16 GPU vs CPU",
+                          p.predict_batch(few_sc, few_gr, noises=z_few),
+                          host.predict_batch(few_sc, few_gr,
+                                             noises=z_few.cpu()))
+        print(f"options serve {name} S64_N64: launches "
+              f"{json.dumps(paths[f'serve_{name}'])}, {call_ms:.2f} ms per "
+              f"predict_batch (one call), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        del p, host, out, ref
+
+        # (b) one iteration against the plain kernels and the CPU
+        draws, replay = _option_draws(cfg, f32, S, N, gen)
+        with _kernel_calls() as (pool_calls, k3_calls):
+            got = _option_iteration(state, batch, cfg, f32, draws, "fused")
+        with plain_pool_kernels(), plain_lstm_kernels():
+            ref = _option_iteration(state, batch, cfg, f32,
+                                    replay("cuda"), "fused")
+        what = f"options train {name} fused S64_N{N}"
+        # BatchNorm's statistics amplify rounding (1/std) and a rounding-
+        # level change crosses ReLU and max kinks: the JAX package's own
+        # jitted and eager BN gradients differ by 1.2e-5 of the largest
+        # entry (tests/test_torch_options.py); on the 4-scene batch below,
+        # on the CPU, the port's 'scan' and 'fused' routes differ by
+        # 4.7e-4 of D's largest entry and a 1e-7 relative change of the
+        # weights moves D's gradient by 5.5e-3 of it. A BN model's
+        # gradient tensors are held against their network's largest
+        # entry, at 1e-2 on the card and 5e-2 card vs CPU
+        floor = 1.0 if cfg.batch_norm else 1e-6
+        cpu_rtol = 5e-2 if cfg.batch_norm else TRAIN_GRAD_RTOL
+        _loss_report(f"{what} kernels vs plain", got[0], ref[0])
+        _grad_report(f"{what} kernels vs plain", got[1], got[2], ref[2],
+                     floor)
+        del got, ref
+        sdraws, sreplay = _option_draws(cfg, f32, 4, 16, gen)
+        got = _option_iteration(state, small, cfg, f32, sdraws, "fused")
+        host = train_state_from_modules(copy.deepcopy(state.g).cpu(),
+                                        copy.deepcopy(state.d).cpu(), f32)
+        ref = _option_iteration(host, {k_: v.cpu() for k_, v in
+                                       small.items()}, cfg, f32,
+                                sreplay("cpu"), "fused")
+        _loss_report(f"options train {name} S4_N16 GPU vs CPU", got[0],
+                     ref[0])
+        _grad_report(f"options train {name} S4_N16 GPU vs CPU", got[1],
+                     got[2], ref[2], floor, cpu_rtol)
+        del got, ref, host
+        if name == "dropout1":
+            print(f"options dropout1: one iteration's K1/K2 calls (kernel, "
+                  f"R) {pool_calls}; K3 calls (T, rows, variant, "
+                  f"residuals) {sorted(set(k3_calls))}")
+            rows = f32.best_k * S * N
+            if not any(c[1] == rows and c[2] == "decoder" and c[3]
+                       for c in k3_calls):
+                fail(f"options dropout1: the per-sample decoder must run "
+                     f"K3 once at {rows} rows with residuals")
+            folded = _options_lstm_checks(rows, smi)
+
+        # timed iterations on both routes
+        for impl, n in OPT_ITERS.items():
+            run = train_state_from_modules(copy.deepcopy(state.g),
+                                           copy.deepcopy(state.d), tcfg)
+            train_iterations(run, data[N], idx[:1], cfg, tcfg, gen,
+                             impl=impl)                        # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            losses = train_iterations(run, data[N], idx[1:1 + n], cfg, tcfg,
+                                      gen, impl=impl)
+            torch.cuda.synchronize()
+            it_ms = (time.perf_counter() - t0) * 1e3 / n
+            counts = paths[f"train_{name}_{impl}"] = all_counts()
+            if not all(bool(torch.isfinite(v).all())
+                       for v in losses.values()):
+                fail(f"options train {name} {impl}: a loss is not finite")
+            print(f"options train {name} {impl} S64_N{N}: launches "
+                  f"{json.dumps(counts)} over {n} iteration(s), "
+                  f"{it_ms:.1f} ms per iteration, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"{smi}")
+            if impl == "pallas" and not (counts["lstm_proj_fwd"]
+                                         and counts["lstm_proj_bwd"]):
+                fail(f"options train {name} pallas: K5 and K6 must run")
+            if impl == "fused":
+                profile_phase(lambda: train_iterations(
+                    run, data[N], idx[:1], cfg, tcfg, gen, impl="fused"),
+                    f"options {name} fused iteration",
+                    f"profile_options_{name}.txt", it_ms)
+            del run
+    fused = paths["train_dropout1_fused"]
+    if not all(fused[k_] for k_ in ("pool_core_fwd", "pool_core_bwd",
+                                    "lstm_fused_fwd", "lstm_fused_bwd")):
+        fail(f"options: K1, K2, K3 and K4 must each run on the dropout1 "
+             f"'fused' path, got {fused}")
+    print(f"options phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths, folded
+
+
+def _options_lstm_checks(rows, smi):
+    """K3/K4 at the per-sample decoder's folded rows (T=11, H=32,
+    residuals saved) against their plain versions, timed beside their
+    bounds."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    folded = {}
+    name = f"options_decoder_T11_B{rows}_H32"
+    k3_err, k4_err = check_lstm(name, gen, 11, rows, 32, False, save=True,
+                                timed=folded)
+    for kind, e in folded[name].items():
+        e["max_abs_err"] = k3_err if kind == "fwd" else k4_err
+        print(f"options K{3 if kind == 'fwd' else 4} {name} {kind}: "
+              f"kernel_ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} "
+              f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}); {smi}")
+    return folded
+
+
 def main():
     import numpy as np
     import torch
@@ -2912,6 +3233,8 @@ def main():
     loop_launches = loop_phase(smi.splitlines()[0])
     preset_launches = presets_phase(batches, noises)
     many_launches, many_timed, _ = many_phase(rng, smi.splitlines()[0])
+    option_launches, option_folded = options_phase(
+        batches, noises, smi.splitlines()[0])
     bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
@@ -2923,7 +3246,9 @@ def main():
     # per-step pooling model's serving call and PET_ITERS iterations on
     # 'scan' and 'fused', and the other presets' serving calls and
     # iterations (presets_phase), and train_many's sweep of four seeds
-    # (many_phase, K1/K2 at R = 4). No
+    # (many_phase, K1/K2 at R = 4), and the MLP options' serving calls
+    # and 'fused' and 'pallas' iterations (options_phase: K3/K4 at 20·S·N
+    # rows in the dropout1 model's per-sample g-step). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -2944,7 +3269,8 @@ def main():
              "eval_pallas": eval_launches["pallas"],
              "loop_fused": loop_launches["fused"],
              "loop_pallas": loop_launches["pallas"], **preset_launches,
-             "train_many": many_launches}
+             "train_many": many_launches,
+             **{f"options_{k}": v for k, v in option_launches.items()}}
     # K1/K2 at the R = 4 shapes of a 4-seed training iteration
     many_shapes = {kind: {tag: t for (k_, tag), t in many_timed.items()
                           if k_ == kind} for kind in ("fwd", "bwd")}
@@ -2987,12 +3313,14 @@ def main():
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",
               "grouptraj/ops/pallas_fused.py:118", k3_err, k3_shape,
               lstm_timed[k3_shape]["fwd"], nearest_library=lstm_library,
+              shapes_options={n: t["fwd"] for n, t in option_folded.items()},
               **tc_more(lstm_timed[k3_shape]["fwd"],
                         {n: t["fwd"] for n, t in lstm_timed.items()},
                         "lstm_fused_fwd_kernel")),
         entry("lstm_fused_bwd", "grouptraj_torch/csrc/lstm_fused_bwd.cu",
               "grouptraj/ops/pallas_fused.py:180", k4_err, k4_shape,
               lstm_timed[k4_shape]["bwd"], nearest_library=lstm_library,
+              shapes_options={n: t["bwd"] for n, t in option_folded.items()},
               **tc_more(lstm_timed[k4_shape]["bwd"],
                           {n: t["bwd"] for n, t in lstm_timed.items()
                            if "bwd" in t}, "lstm_fused_bwd_kernel")),

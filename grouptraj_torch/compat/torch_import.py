@@ -138,8 +138,10 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
     generator or (``kind='discriminator'``) the discriminator -> the
     torch-named state dict of the port's module. Keys, their order and
     layouts equal ``grouptraj.compat.export_state_dicts(tree, kind)`` for
-    every preset's generator and both discriminators; a batch_norm MLP, or
-    a tree with parts no port model has, raises NotImplementedError. A JAX
+    every preset's generator and both discriminators, batch_norm MLPs
+    included (their BatchNorm1d entries carry the running statistics 0
+    and 1, which nothing reads); a tree with parts no port model has
+    raises NotImplementedError. A JAX
     ``TrainState``'s ``g_params``/``d_params`` thus become the port's G and
     D; the optimizer's moments, trees of the same shape, cross with
     :func:`adam_from_optax`."""
@@ -156,11 +158,22 @@ def params_from_jax(tree: Mapping, kind: str = "generator"
         out[prefix + ".bias_hh_l0"] = np.asarray(p["b_hh"])
 
     def mlp(prefix, p):
-        for idx, layer in enumerate(p["layers"]):
-            if "bn_scale" in layer:
-                raise NotImplementedError("batch_norm is not ported yet")
-            # make_mlp layout: Linear, activation -> Linear indices 0, 2, ...
-            lin(f"{prefix}.{2 * idx}", layer["linear"])
+        # make_mlp layout: Linear, [BatchNorm1d,] activation -> the Linear
+        # indices 0, 2, ... or, with batch_norm, 0, 3, ...
+        idx = 0
+        for layer in p["layers"]:
+            lin(f"{prefix}.{idx}", layer["linear"])
+            if "bn_scale" not in layer:
+                idx += 2
+                continue
+            bn = f"{prefix}.{idx + 1}"
+            out[bn + ".weight"] = np.asarray(layer["bn_scale"])
+            out[bn + ".bias"] = np.asarray(layer["bn_bias"])
+            out[bn + ".running_mean"] = np.zeros(out[bn + ".weight"].shape,
+                                                 np.float32)
+            out[bn + ".running_var"] = np.ones(out[bn + ".weight"].shape,
+                                               np.float32)
+            idx += 3
 
     def gcn(prefix, p):
         for i, w in enumerate(p["W"]):
@@ -255,9 +268,19 @@ def params_to_jax(state: Mapping, kind: str = "generator") -> dict:
                 "b_hh": sd[prefix + ".bias_hh_l0"]}
 
     def mlp(prefix):
+        # a BatchNorm1d entry (a 1-D weight; an optimizer's moments carry
+        # no running statistics) belongs to the Linear before it
         idxs = sorted({int(k[len(prefix) + 1:].split(".")[0])
                        for k in sd if k.startswith(prefix + ".")})
-        return {"layers": [{"linear": lin(f"{prefix}.{i}")} for i in idxs]}
+        layers = []
+        for i in idxs:
+            sub = f"{prefix}.{i}"
+            if sd[sub + ".weight"].ndim == 1:
+                layers[-1]["bn_scale"] = sd[sub + ".weight"]
+                layers[-1]["bn_bias"] = sd[sub + ".bias"]
+            else:
+                layers.append({"linear": lin(sub)})
+        return {"layers": layers}
 
     def gcn(prefix):
         ws, i = [], 0
@@ -392,8 +415,10 @@ def adam_from_optax(opt_state, optimizer: torch.optim.Optimizer,
         return False
     params = dict(module.named_parameters())
     try:
-        mu = params_from_jax(adam.mu, kind)
-        nu = params_from_jax(adam.nu, kind)
+        # the running statistics of a BatchNorm1d are buffers, no moments
+        mu, nu = ({k: v for k, v in params_from_jax(tree, kind).items()
+                   if not k.endswith((".running_mean", ".running_var"))}
+                  for tree in (adam.mu, adam.nu))
     except (KeyError, TypeError, NotImplementedError):
         return False
     if set(mu) != set(params) or any(

@@ -20,8 +20,17 @@ the scan route's folded recurrence, as in the JAX package). Covered: all
 five presets — pool_net, gcn or no pooling; the ``gat``, ``gat-mh`` or
 ``gcn`` graph module, or none with ``mlp_decoder_context``; and the
 ``pool_every_timestep`` decoder, which re-pools the decoder's state at
-every step (:func:`_decode_stepwise`, on every route). batch_norm and the
-non-ReLU activations raise; dropout raises where it would be used.
+every step (:func:`_decode_stepwise`, on every route); and every MLP
+option: batch_norm (on the batch's statistics, in evaluation too), the
+``'leakyrelu'`` and ``'none'`` activations, ``dropout`` and the GAT's
+``dropout1``.
+
+``nn.Module.train()``/``.eval()`` is the JAX package's ``train=`` flag: in
+training mode dropout takes its keep-masks from the ``masks`` argument of
+the forward functions (an :class:`~grouptraj_torch.ops.linear.KeepMasks`;
+left None, they are drawn from the device's default generator), in eval
+mode nothing is dropped. One forward asks for its masks in the JAX
+package's order of ``jax.random.bernoulli`` calls.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from grouptraj_torch.models.modules import (
     gat_encoder_mh, gcn_module, gcn_pooling,
 )
 from grouptraj_torch.ops.cuda_lstm import decoder_recurrence_fused
-from grouptraj_torch.ops.linear import linear, mlp_forward
+from grouptraj_torch.ops.linear import (
+    DrawnMasks, KeepMasks, linear, mlp_forward,
+)
 from grouptraj_torch.ops.lstm import (
     decoder_first_step, decoder_proj_recurrence, encoder_recurrence,
     lstm_cell, lstm_scan,
@@ -94,7 +105,8 @@ class _Decoder(nn.Module):
         self.hidden2pos = nn.Linear(H, 2)
         if cfg.pool_every_timestep:
             self.pool_net = _pool_net(cfg, H)
-            self.mlp = _mlp([H + cfg.bottleneck_dim, cfg.mlp_dim, H])
+            self.mlp = _mlp([H + cfg.bottleneck_dim, cfg.mlp_dim, H],
+                            cfg.batch_norm, cfg.activation)
 
     def tree(self) -> dict:
         p = {"spatial_embedding": _lin(self.spatial_embedding),
@@ -106,24 +118,65 @@ class _Decoder(nn.Module):
         return p
 
 
-def _mlp(dims) -> nn.Sequential:
-    """make_mlp layout: Linear, ReLU pairs (Linear keys .0, .2, ...)."""
+class BatchNormWeights(nn.Module):
+    """The four tensors of a ``BatchNorm1d`` under its own names: ``weight``
+    (the JAX package's ``bn_scale``, ones) and ``bias`` (``bn_bias``,
+    zeros), and the buffers ``running_mean``/``running_var``, which stay 0
+    and 1 and are never read (BatchNorm runs on the batch's statistics)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+
+_ACTIVATIONS = {"relu": nn.ReLU, "leakyrelu": nn.LeakyReLU, "none": nn.Identity}
+
+
+def _mlp(dims, batch_norm: bool = False, activation: str = "relu"
+         ) -> nn.Sequential:
+    """make_mlp layout as the JAX package exports it: Linear, BatchNorm1d
+    (with batch_norm), activation a layer, so the Linear keys are .0, .2,
+    ... or with batch_norm .0, .3, ... and the BatchNorm keys .1, .4, ...
+    Dropout adds no entry."""
     layers = []
     for d_in, d_out in zip(dims[:-1], dims[1:]):
-        layers += [nn.Linear(d_in, d_out), nn.ReLU()]
+        layers.append(nn.Linear(d_in, d_out))
+        if batch_norm:
+            layers.append(BatchNormWeights(d_out))
+        layers.append(_ACTIVATIONS[activation]())
     return nn.Sequential(*layers)
 
 
 def _mlp_tree(seq: nn.Sequential) -> dict:
-    return {"layers": [{"linear": _lin(m)} for m in seq
-                       if isinstance(m, nn.Linear)]}
+    layers = []
+    for m in seq:
+        if isinstance(m, nn.Linear):
+            layers.append({"linear": _lin(m)})
+        elif isinstance(m, BatchNormWeights):
+            layers[-1]["bn_scale"], layers[-1]["bn_bias"] = m.weight, m.bias
+    return {"layers": layers}
+
+
+def keep_masks(module: nn.Module, cfg: ModelConfig,
+               masks: Optional[KeepMasks]) -> Optional[KeepMasks]:
+    """The mask source a forward of ``module`` uses: None in eval mode or
+    without dropout, else ``masks`` or, left None, draws from the device's
+    default generator."""
+    if not module.training or not (cfg.dropout or cfg.dropout1):
+        return None
+    return DrawnMasks() if masks is None else masks
 
 
 class _PoolHiddenNet(nn.Module):
-    def __init__(self, embedding_dim: int, h_dim: int, bottleneck_dim: int):
+    def __init__(self, embedding_dim: int, h_dim: int, bottleneck_dim: int,
+                 batch_norm: bool = False, activation: str = "relu"):
         super().__init__()
         self.spatial_embedding = nn.Linear(2, embedding_dim)
-        self.mlp_pre_pool = _mlp([embedding_dim + h_dim, 512, bottleneck_dim])
+        self.mlp_pre_pool = _mlp([embedding_dim + h_dim, 512, bottleneck_dim],
+                                 batch_norm, activation)
 
     def tree(self) -> dict:
         return {"spatial_embedding": _lin(self.spatial_embedding),
@@ -135,7 +188,8 @@ def _pool_net(cfg: ModelConfig, h_dim: int) -> nn.Module:
     if cfg.pooling_type == "gcn":
         return GCNPooling(cfg.embedding_dim, h_dim, cfg.gcn_hidden_dim,
                           cfg.bottleneck_dim, cfg.gcn_layers)
-    return _PoolHiddenNet(cfg.embedding_dim, h_dim, cfg.bottleneck_dim)
+    return _PoolHiddenNet(cfg.embedding_dim, h_dim, cfg.bottleneck_dim,
+                          cfg.batch_norm, cfg.activation)
 
 
 def _pooling(cfg: ModelConfig) -> bool:
@@ -143,12 +197,8 @@ def _pooling(cfg: ModelConfig) -> bool:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.batch_norm or cfg.activation != "relu":
-        raise NotImplementedError(
-            "batch_norm and the non-relu activations are not ported yet "
-            "(nor is dropout, which raises where it is used): they come "
-            "with the masked batch_norm MLP and the per-sample forward "
-            "(ROADMAP.md queue 1)")
+    if cfg.activation not in _ACTIVATIONS:
+        raise ValueError(f"activation={cfg.activation!r}")
     if cfg.pooling_type not in (None, "none", "pool_net", "gcn"):
         raise ValueError(f"pooling_type={cfg.pooling_type!r}")
     if cfg.pool_every_timestep and not _pooling(cfg):
@@ -184,10 +234,12 @@ class TrajectoryGenerator(nn.Module):
         elif cfg.graph_module == "gat-mh":
             self.gatencoder = GATEncoderMH(cfg.mh_n_units, cfg.mh_n_heads)
             self.mlp_decoder_context = _mlp(
-                [cfg.mh_n_units[-1], cfg.mlp_dim, cfg.decoder_context_dim])
+                [cfg.mh_n_units[-1], cfg.mlp_dim, cfg.decoder_context_dim],
+                cfg.batch_norm, cfg.activation)
         elif cfg.mlp_decoder_context:   # gcn-pool, sgan-p, sgan
             self.mlp_decoder_context = _mlp(
-                [cfg.context_dim, cfg.mlp_dim, cfg.decoder_context_dim])
+                [cfg.context_dim, cfg.mlp_dim, cfg.decoder_context_dim],
+                cfg.batch_norm, cfg.activation)
 
     def tree(self) -> dict:
         """The parameters as the JAX package's tree (views, no copies)."""
@@ -202,33 +254,37 @@ class TrajectoryGenerator(nn.Module):
 
     def generator_context(self, obs: torch.Tensor, obs_rel: torch.Tensor,
                           group_end: torch.Tensor, valid: torch.Tensor,
-                          impl: str = "scan") -> torch.Tensor:
+                          impl: str = "scan",
+                          masks: Optional[KeepMasks] = None) -> torch.Tensor:
         """Encoder → pooling → graph module -> noise_input [S, N,
-        decoder_h − noise]; computed once and shared by all best-of-k
-        samples. obs and obs_rel are [S, N, To, 2], group_end and valid
-        [S, N]."""
+        decoder_h − noise]; without dropout in training computed once and
+        shared by all best-of-k samples. obs and obs_rel are [S, N, To, 2],
+        group_end and valid [S, N]. ``masks``: the training mask source
+        (:func:`keep_masks`)."""
         cfg, p = self.cfg, self.tree()
+        masks = keep_masks(self, cfg, masks)
         final_h = _encode(p["encoder"], obs_rel, impl)        # [S, N, He]
         ctx = final_h
         if _pooling(cfg):
             pool_h = _pool(p["pool_net"], cfg, final_h, obs[:, :, -1, :],
-                           obs_rel[:, :, -1, :], group_end, valid)
+                           obs_rel[:, :, -1, :], group_end, valid, masks)
             ctx = torch.cat([final_h, pool_h], dim=-1)        # [S, N, He+B]
         if not _mlp_decoder_needed(cfg):
             return ctx
         if cfg.graph_module == "gat":
             return gat_encoder(p["gatencoder"], ctx, group_end, valid,
-                               cfg.alpha)
+                               cfg.alpha, cfg.dropout1, masks)
         if cfg.graph_module == "gcn":
             return gcn_module(p["gcn_module"], ctx, group_end, valid)
         if cfg.graph_module == "gat-mh":
             ctx = gat_encoder_mh(p["gatencoder"], ctx, group_end, valid,
                                  cfg.alpha, cfg.mh_adj, cfg.mh_concat,
-                                 cfg.mh_norm)
+                                 cfg.mh_norm, cfg.dropout1, masks)
         elif not cfg.mlp_decoder_context:
             return ctx
         return mlp_forward(p["mlp_decoder_context"], ctx, cfg.activation,
-                           cfg.batch_norm, cfg.dropout, mask=valid)
+                           cfg.batch_norm, cfg.dropout, mask=valid,
+                           masks=masks)
 
     def generator_sample(self, noise_input: torch.Tensor,
                          obs_rel: torch.Tensor, valid: torch.Tensor,
@@ -236,14 +292,15 @@ class TrajectoryGenerator(nn.Module):
                          user_noise: Optional[torch.Tensor] = None,
                          impl: str = "scan", *,
                          obs: Optional[torch.Tensor] = None,
-                         group_end: Optional[torch.Tensor] = None
+                         group_end: Optional[torch.Tensor] = None,
+                         masks: Optional[KeepMasks] = None
                          ) -> torch.Tensor:
         """One sample: noise concat + decode -> pred_rel [S, N, Tp, 2] in
         ``noise_input``'s dtype (float32 with ``impl='fused'``), × valid.
         ``user_noise`` ``[S, N, nd]`` replaces the internal draw. ``obs``
         [S, N, To, 2] and ``group_end`` [S, N] are what the
         ``pool_every_timestep`` decoder pools on (required there, unused
-        otherwise)."""
+        otherwise); ``masks`` feeds that decoder's dropout."""
         cfg = self.cfg
         S, N = valid.shape
         h = noise_input
@@ -254,19 +311,24 @@ class TrajectoryGenerator(nn.Module):
                                   noise_input.device)[0]
             h = torch.cat([h, z.to(noise_input.dtype)], dim=-1)
         return _decode(self.decoder.tree(), cfg, h, obs_rel[:, :, -1, :],
-                       valid, impl, _last(obs), group_end)
+                       valid, impl, _last(obs), group_end,
+                       keep_masks(self, cfg, masks))
 
     def generator_forward(self, obs: torch.Tensor, obs_rel: torch.Tensor,
                           group_end: torch.Tensor, valid: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
                           user_noise: Optional[torch.Tensor] = None,
-                          impl: str = "scan") -> torch.Tensor:
+                          impl: str = "scan",
+                          masks: Optional[KeepMasks] = None) -> torch.Tensor:
         """One stochastic forward pass -> pred_rel [S, N, Tp, 2]:
-        :meth:`generator_context` then :meth:`generator_sample`."""
-        ctx = self.generator_context(obs, obs_rel, group_end, valid, impl)
+        :meth:`generator_context` then :meth:`generator_sample`, one mask
+        source for both."""
+        masks = keep_masks(self, self.cfg, masks)
+        ctx = self.generator_context(obs, obs_rel, group_end, valid, impl,
+                                     masks)
         return self.generator_sample(ctx, obs_rel, valid, generator,
                                      user_noise, impl, obs=obs,
-                                     group_end=group_end)
+                                     group_end=group_end, masks=masks)
 
     def generator_sample_many(self, noise_input: torch.Tensor,
                               obs_rel: torch.Tensor, valid: torch.Tensor,
@@ -275,15 +337,19 @@ class TrajectoryGenerator(nn.Module):
                               user_noises: Optional[torch.Tensor] = None,
                               impl: str = "scan", *,
                               obs: Optional[torch.Tensor] = None,
-                              group_end: Optional[torch.Tensor] = None
+                              group_end: Optional[torch.Tensor] = None,
+                              masks: Optional[KeepMasks] = None
                               ) -> torch.Tensor:
         """All K best-of-k samples in ONE decoder pass -> rel predictions
         [K, S, N, Tp, 2]: each sample's noise is concatenated to the shared
         context, then the scene axis is tiled K-fold into ``[K·S, N]`` rows
-        (scenes are independent in the decoder). ``user_noises``
-        ``[K, S, N, nd]`` replaces the internal draws. ``obs`` and
-        ``group_end`` as in :meth:`generator_sample`, tiled K-fold like
-        ``valid``."""
+        (scenes are independent in the decoder but for BatchNorm, whose
+        statistics then span all K samples, as in the JAX package).
+        ``user_noises`` ``[K, S, N, nd]`` replaces the internal draws.
+        ``obs`` and ``group_end`` as in :meth:`generator_sample`, tiled
+        K-fold like ``valid``; the per-step decoder's dropout masks (from
+        ``masks``) are drawn at the tiled shape, shared by the samples as
+        the JAX package shares their keys."""
         cfg = self.cfg
         K = num_samples
         S, N = valid.shape
@@ -301,7 +367,8 @@ class TrajectoryGenerator(nn.Module):
 
         pred = _decode(self.decoder.tree(), cfg, h.reshape(K * S, N, -1),
                        tile(obs_rel[:, :, -1, :]), tile(valid), impl,
-                       tile(_last(obs)), tile(group_end))
+                       tile(_last(obs)), tile(group_end),
+                       keep_masks(self, cfg, masks))
         return pred.reshape(K, S, N, cfg.pred_len, 2)
 
 
@@ -311,7 +378,8 @@ def _last(obs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _pool(params: dict, cfg: ModelConfig, h: torch.Tensor,
           end_pos: torch.Tensor, last_rel: torch.Tensor,
-          labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+          labels: torch.Tensor, valid: torch.Tensor,
+          masks: Optional[KeepMasks] = None) -> torch.Tensor:
     """The pool-net of ``cfg.pooling_type``: PoolHiddenNet anchored at the
     absolute positions ``end_pos`` (through kernel K1 on CUDA tensors with
     ``pool_impl='auto'``), or GCNPooling on the relative step ``last_rel``
@@ -319,7 +387,8 @@ def _pool(params: dict, cfg: ModelConfig, h: torch.Tensor,
     if cfg.pooling_type == "gcn":
         return gcn_pooling(params, h, last_rel, labels, valid)
     return pool_hidden_net(params, h, end_pos, valid, cfg.activation,
-                           cfg.batch_norm, impl=cfg.pool_impl)
+                           cfg.batch_norm, cfg.dropout, masks,
+                           impl=cfg.pool_impl)
 
 
 def sample_noises(cfg: ModelConfig, K: int, S: int, N: int,
@@ -365,7 +434,8 @@ def _encode(enc: dict, traj_rel: torch.Tensor, impl: str = "scan"
 def _decode(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
             last_pos_rel: torch.Tensor, valid: torch.Tensor, impl: str,
             last_pos: Optional[torch.Tensor],
-            group_end: Optional[torch.Tensor]) -> torch.Tensor:
+            group_end: Optional[torch.Tensor],
+            masks: Optional[KeepMasks] = None) -> torch.Tensor:
     """The decoder (reference Decoder, models.py:95-178): folded without
     per-step re-pooling, stepwise with it (``impl`` then changes nothing,
     as in the JAX package)."""
@@ -376,20 +446,21 @@ def _decode(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
                          "absolute positions and the group labels: pass "
                          "obs= and group_end=")
     return _decode_stepwise(dec, cfg, h0, last_pos, last_pos_rel, group_end,
-                            valid)
+                            valid, masks)
 
 
 def _decode_stepwise(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
                      last_pos: torch.Tensor, last_pos_rel: torch.Tensor,
-                     group_end: torch.Tensor, valid: torch.Tensor
-                     ) -> torch.Tensor:
+                     group_end: torch.Tensor, valid: torch.Tensor,
+                     masks: Optional[KeepMasks] = None) -> torch.Tensor:
     """The ``pool_every_timestep`` decoder, one step at a time in ``h0``'s
     dtype (``grouptraj/models/generator.py:_decode``). Carry (h, c, pos,
     rel); a step embeds rel, runs the LSTM cell, projects h to the new rel,
     moves pos by it, pools the ``[S, N, H]`` state at the NEW absolute
     positions (GCNPooling: at the new rel, with the group labels) and
     replaces h — not c — by ``decoder.mlp(h ‖ pool_h)``, the MLP's trailing
-    ReLU kept. The pool runs in float32 whatever the decoder's dtype (its
+    ReLU kept; with ``masks`` each step's pool, then its MLP, draw their
+    dropout masks. The pool runs in float32 whatever the decoder's dtype (its
     kernel K1 takes float32 a/u) and its result is cast back. Returns
     pred_rel [S, N, T, 2], zero at invalid peds."""
     S, N, H = h0.shape
@@ -407,10 +478,10 @@ def _decode_stepwise(dec: dict, cfg: ModelConfig, h0: torch.Tensor,
         hs = h.reshape(S, N, H)
         pool_h = _pool(dec["pool_net"], cfg, hs.float(),
                        pos.reshape(S, N, 2).float(),
-                       rel.reshape(S, N, 2).float(), group_end, valid)
+                       rel.reshape(S, N, 2).float(), group_end, valid, masks)
         h = mlp_forward(dec["mlp"], torch.cat([hs, pool_h.to(dt)], dim=-1),
                         cfg.activation, cfg.batch_norm, cfg.dropout,
-                        mask=valid).reshape(S * N, H)
+                        mask=valid, masks=masks).reshape(S * N, H)
         rels.append(rel)
     pred_rel = torch.stack(rels, dim=1).reshape(S, N, cfg.pred_len, 2)
     return pred_rel * valid[..., None, None]

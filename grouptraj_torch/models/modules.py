@@ -24,6 +24,7 @@ names; the functions take their ``tree()`` views.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -34,7 +35,7 @@ from grouptraj_torch.ops.groups import (
     group_membership, inter_group_adjacency, intra_group_adjacency,
     normalize_adjacency,
 )
-from grouptraj_torch.ops.linear import linear
+from grouptraj_torch.ops.linear import KeepMasks, linear
 
 
 class GATLayer(nn.Module):
@@ -88,17 +89,19 @@ class GATEncoder(nn.Module):
 
 
 def gat_encoder(params: dict, x: torch.Tensor, labels: torch.Tensor,
-                valid: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
+                valid: torch.Tensor, alpha: float = 0.2, dropout: float = 0.0,
+                masks: Optional[KeepMasks] = None) -> torch.Tensor:
     """- x: [S, N, in_dim] per-ped context features
     - labels: [S, N] group label at t_obs; valid: [S, N]
-    Returns [S, N, final_dim], zero at invalid peds."""
+    Returns [S, N, final_dim], zero at invalid peds. ``dropout`` (with a
+    mask source) runs in the intra GAT, then in the inter GAT."""
     intra = gat(params["gat_intra"], x, intra_group_adjacency(labels, valid),
-                alpha)
+                alpha, dropout, masks)
     r_raw, group_valid = group_membership(labels, valid)
     r = normalize_adjacency(r_raw)
     x_group = r @ intra                                     # GPool  [S, M, F]
     y_group = gat(params["gat_inter"], x_group,
-                  inter_group_adjacency(group_valid), alpha)
+                  inter_group_adjacency(group_valid), alpha, dropout, masks)
     inter = torch.einsum("smn,smf->snf", r, y_group)        # GUnpool (Rᵀ @ y)
     out = linear(params["out_embedding"], torch.cat([intra, inter], dim=-1))
     return torch.where(valid[..., None] > 0, out, 0.0)
@@ -233,14 +236,15 @@ class GCNPooling(nn.Module):
 def gat_encoder_mh(params: dict, x: torch.Tensor, labels: torch.Tensor,
                    valid: torch.Tensor, alpha: float = 0.2,
                    adj_mode: str = "mix", concat_mode: str = "transpose",
-                   norm: bool = False) -> torch.Tensor:
+                   norm: bool = False, dropout: float = 0.0,
+                   masks: Optional[KeepMasks] = None) -> torch.Tensor:
     """The ``gat-mh`` graph module: the batched multi-head GAT stack over
     the row-normalised intra-group adjacency, zero at invalid peds. x
     [S, N, n_units[0]] -> [S, N, n_units[-1]]; the generator follows it
     with ``mlp_decoder_context``."""
     a_intra = normalize_adjacency(intra_group_adjacency(labels, valid))
     out = batch_gat(params["gat_net"], x, a_intra, valid, alpha, adj_mode,
-                    concat_mode, norm)
+                    concat_mode, norm, dropout, masks)
     return torch.where(valid[..., None] > 0, out, 0.0)
 
 

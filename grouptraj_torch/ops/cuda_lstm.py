@@ -13,8 +13,11 @@
   the public functions, the counterparts of ``lstm_recurrence_pallas`` and
   ``decoder_recurrence_pallas``: they upcast their arguments to float32,
   and go through a ``torch.autograd.Function`` that saves the residuals
-  when an argument needs a gradient, and straight to the forward wrapper
-  (nothing saved) when none does.
+  when an argument needs a gradient or is batched under ``torch.func.vmap``,
+  and straight to the forward wrapper (nothing saved) otherwise. Under
+  vmap the Functions' rule folds the vmapped axis into the rows (one
+  launch at K·B rows: the per-sample g-step of a dropout model); a
+  batched weight raises.
 
 Each source note gives its kernel's bound and design. For CUDA tensors a
 wrapper checks the inputs, launches its kernel on PyTorch's current stream
@@ -35,7 +38,7 @@ from torch.autograd.function import once_differentiable
 
 from grouptraj_torch.ops import _build
 from grouptraj_torch.ops.lstm import (
-    _fused_fwd_plain, _wants_grad, fused_recurrence_bwd_plain,
+    _batched, _fused_fwd_plain, _wants_grad, fused_recurrence_bwd_plain,
 )
 
 HIDDEN_SIZES = (8, 16, 32, 48, 64)     # the widths the kernels are built for
@@ -211,38 +214,106 @@ def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
 
 
+def fold_rows(info, in_dims, weights, rows):
+    """The batching rule of a row-independent recurrence under
+    ``torch.func.vmap``. ``in_dims`` are the Function's, the weights'
+    first: the weights (named by ``weights``) must be unbatched (one
+    weight for every vmapped replica; a batched one, as a seed-vmapped
+    sweep would give, raises NotImplementedError), and each of ``rows``,
+    a ``(tensor, row_dim)`` pair, has the vmapped axis merged into its row
+    axis, replica-major (an unbatched one is broadcast). -> the folded
+    tensors, contiguous."""
+    n = info.batch_size
+    for name, dim in zip(weights, in_dims):
+        if dim is not None:
+            raise NotImplementedError(
+                f"{name} is batched under vmap (one weight a replica): the "
+                f"LSTM kernels' batching rule folds the vmapped axis into "
+                f"the rows and needs one shared weight; multi-seed sweeps "
+                f"run the 'scan' route")
+    out = []
+    for (t, row), dim in zip(rows, in_dims[len(weights):]):
+        if dim is None:
+            t = t.unsqueeze(row).expand(*t.shape[:row], n, *t.shape[row:])
+        else:
+            t = t.movedim(dim, row)
+        out.append(t.reshape(*t.shape[:row], -1, *t.shape[row + 2:])
+                   .contiguous())
+    return out
+
+
+def unfold_rows(n: int, t: torch.Tensor, row: int) -> torch.Tensor:
+    """The inverse of :func:`fold_rows` on an output: its row axis split
+    into (replica, row) -> a view with the vmapped axis at ``row``."""
+    return t.view(*t.shape[:row], n, -1, *t.shape[row + 1:])
+
+
+# The Functions return the residuals their backward needs (gates, cs) as
+# extra non-differentiable outputs: the setup_context form, which
+# torch.func.vmap requires, sees only inputs and outputs. Each has a vmap
+# rule that folds the vmapped axis into the rows (fold_rows): one launch
+# at n·B rows, and one autograd node, so the backward is one launch too.
+
 class _LstmRecurrenceFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_hh, gx, h0, c0):
-        ys, hT, cT, gates, cs = lstm_fused_fwd(w_hh, h0, c0, gx=gx,
-                                               save=True)
+    def forward(w_hh, gx, h0, c0):
+        return lstm_fused_fwd(w_hh, h0, c0, gx=gx, save=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w_hh, _, h0, c0 = inputs
+        ys, _, _, gates, cs = output
         ctx.save_for_backward(w_hh, h0, c0, ys, gates, cs)
+        ctx.mark_non_differentiable(gates, cs)
         ctx.set_materialize_grads(False)      # an unused output costs nothing
-        return ys, hT, cT
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dys, dhT, dcT):
+    def backward(ctx, dys, dhT, dcT, _dgates, _dcs):
         dgx, dw, _, dh0, dc0 = lstm_fused_bwd(
             *ctx.saved_tensors, _contiguous(dys), _contiguous(dhT),
             _contiguous(dcT), with_gx=True)
         return dw, dgx, dh0, dc0
 
+    @staticmethod
+    def vmap(info, in_dims, w_hh, gx, h0, c0):
+        gx, h0, c0 = fold_rows(info, in_dims, ("w_hh",),
+                               ((gx, 1), (h0, 0), (c0, 0)))
+        ys, hT, cT, gates, cs = _LstmRecurrenceFused.apply(w_hh, gx, h0, c0)
+        n = info.batch_size
+        return ((unfold_rows(n, ys, 1), unfold_rows(n, hT, 0),
+                 unfold_rows(n, cT, 0), unfold_rows(n, gates, 1),
+                 unfold_rows(n, cs, 1)), (1, 0, 0, 1, 1))
+
 
 class _DecoderRecurrenceFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_eff, b_eff, h1, c1, T):
+    def forward(w_eff, b_eff, h1, c1, T):
         ys, _, _, gates, cs = lstm_fused_fwd(w_eff, h1, c1, b=b_eff, T=T,
                                              save=True)
+        return ys, gates, cs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w_eff, _, h1, c1, _ = inputs
+        ys, gates, cs = output
         ctx.save_for_backward(w_eff, h1, c1, ys, gates, cs)
-        return ys
+        ctx.mark_non_differentiable(gates, cs)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dys):
+    def backward(ctx, dys, _dgates, _dcs):
         _, dw, db, dh1, dc1 = lstm_fused_bwd(
             *ctx.saved_tensors, dys.contiguous(), None, None, with_gx=False)
         return dw, db, dh1, dc1, None
+
+    @staticmethod
+    def vmap(info, in_dims, w_eff, b_eff, h1, c1, T):
+        h1, c1 = fold_rows(info, in_dims[:4], ("w_eff", "b_eff"),
+                           ((h1, 0), (c1, 0)))
+        out = _DecoderRecurrenceFused.apply(w_eff, b_eff, h1, c1, T)
+        return (tuple(unfold_rows(info.batch_size, t, 1) for t in out),
+                (1, 1, 1))
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -257,8 +328,8 @@ def lstm_recurrence_fused(w_hh: torch.Tensor, gx: torch.Tensor,
     holds ``x_t @ W_ih + b_ih + b_hh``. Arguments are upcast to float32.
     -> (ys ``[T, B, H]``, (hT, cT)), float32."""
     args = (_f32(w_hh), _f32(gx), _f32(h0), _f32(c0))
-    if _wants_grad(*args):
-        ys, hT, cT = _LstmRecurrenceFused.apply(*args)
+    if _wants_grad(*args) or _batched(*args):
+        ys, hT, cT, _, _ = _LstmRecurrenceFused.apply(*args)
     else:
         ys, hT, cT, _, _ = lstm_fused_fwd(args[0], args[2], args[3],
                                           gx=args[1])
@@ -273,6 +344,6 @@ def decoder_recurrence_fused(w_eff: torch.Tensor, b_eff: torch.Tensor,
     -> the stacked hidden states ys ``[T, B, H]`` (h_2 … h_{T+1}),
     float32."""
     args = (_f32(w_eff), _f32(b_eff), _f32(h1), _f32(c1))
-    if _wants_grad(*args):
-        return _DecoderRecurrenceFused.apply(*args, T)
+    if _wants_grad(*args) or _batched(*args):
+        return _DecoderRecurrenceFused.apply(*args, T)[0]
     return lstm_fused_fwd(args[0], args[2], args[3], b=args[1], T=T)[0]

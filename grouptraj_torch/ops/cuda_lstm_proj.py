@@ -37,9 +37,10 @@ from torch.autograd.function import once_differentiable
 from grouptraj_torch.ops import _build
 from grouptraj_torch.ops.cuda_lstm import (
     HIDDEN_SIZES, _aligned16, _check, _contiguous, _device_index, _f32, _ptr,
+    fold_rows, unfold_rows,
 )
 from grouptraj_torch.ops.lstm import (
-    _wants_grad, lstm_proj_bwd_plain, lstm_proj_fwd_plain,
+    _batched, _wants_grad, lstm_proj_bwd_plain, lstm_proj_fwd_plain,
 )
 
 INPUT_SIZES = (4, 8, 16)      # the input widths D the kernels are built for
@@ -174,21 +175,39 @@ lstm_proj_bwd.launches = 0
 
 
 class _LstmProj(torch.autograd.Function):
+    """K5 forward, K6 backward; the residuals (gates, cs) are extra
+    non-differentiable outputs, and the vmap rule folds the vmapped axis
+    into the rows (``cuda_lstm.fold_rows``)."""
+
     @staticmethod
-    def forward(ctx, w_ih, w_hh, b, xs, h0, c0):
-        ys, hT, cT, gates, cs = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0,
-                                              save=True)
+    def forward(w_ih, w_hh, b, xs, h0, c0):
+        return lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w_ih, w_hh, _, xs, h0, c0 = inputs
+        ys, _, _, gates, cs = output
         ctx.save_for_backward(w_ih, w_hh, xs, h0, c0, ys, gates, cs)
+        ctx.mark_non_differentiable(gates, cs)
         ctx.set_materialize_grads(False)      # an unused output costs nothing
-        return ys, hT, cT
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dys, dhT, dcT):
+    def backward(ctx, dys, dhT, dcT, _dgates, _dcs):
         dxs, dw_ih, dw_hh, db, dh0, dc0 = lstm_proj_bwd(
             *ctx.saved_tensors, _contiguous(dys), _contiguous(dhT),
             _contiguous(dcT))
         return dw_ih, dw_hh, db, dxs, dh0, dc0
+
+    @staticmethod
+    def vmap(info, in_dims, w_ih, w_hh, b, xs, h0, c0):
+        xs, h0, c0 = fold_rows(info, in_dims, ("w_ih", "w_hh", "b"),
+                               ((xs, 1), (h0, 0), (c0, 0)))
+        ys, hT, cT, gates, cs = _LstmProj.apply(w_ih, w_hh, b, xs, h0, c0)
+        n = info.batch_size
+        return ((unfold_rows(n, ys, 1), unfold_rows(n, hT, 0),
+                 unfold_rows(n, cT, 0), unfold_rows(n, gates, 1),
+                 unfold_rows(n, cs, 1)), (1, 0, 0, 1, 1))
 
 
 def lstm_scan_proj(params: dict, xs: torch.Tensor, h0: torch.Tensor,
@@ -201,8 +220,8 @@ def lstm_scan_proj(params: dict, xs: torch.Tensor, h0: torch.Tensor,
     args = (_f32(params["w_ih"]), _f32(params["w_hh"]),
             _f32(params["b_ih"] + params["b_hh"]), _f32(xs), _f32(h0),
             _f32(c0))
-    if _wants_grad(*args):
-        ys, hT, cT = _LstmProj.apply(*args)
+    if _wants_grad(*args) or _batched(*args):
+        ys, hT, cT, _, _ = _LstmProj.apply(*args)
     else:
         ys, hT, cT, _, _ = lstm_proj_fwd(*args)
     return ys, (hT, cT)

@@ -94,6 +94,11 @@ def _requires_grad(t: torch.Tensor) -> bool:
     return t.requires_grad
 
 
+def _batched(*tensors) -> bool:
+    """Whether any of ``tensors`` is batched by ``torch.func.vmap``."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(_requires_grad(t)
                                            for t in tensors)

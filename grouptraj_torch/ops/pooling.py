@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from grouptraj_torch.ops.linear import linear, mlp_forward
+from grouptraj_torch.ops.linear import KeepMasks, linear, mlp_forward
 from grouptraj_torch.ops.precision import use_bf16
 
 _NEG = -1e9  # mask value for the max (forward-exact for post-ReLU features)
@@ -43,28 +43,34 @@ IMPLS = ("pair", "fast", "kernel", "auto")
 
 def pool_hidden_net(params: dict, h: torch.Tensor, end_pos: torch.Tensor,
                     valid: torch.Tensor, activation: str = "relu",
-                    batch_norm: bool = False, impl: str = "auto"
+                    batch_norm: bool = False, dropout: float = 0.0,
+                    masks: Optional[KeepMasks] = None, impl: str = "auto"
                     ) -> torch.Tensor:
     """- h: [S, N, H] hidden states
     - end_pos: [S, N, 2] pooling anchor positions
     - valid: [S, N] {0,1}
     Returns pool_h [S, N, bottleneck] (zeros at invalid i).
-    """
+
+    The decomposed path (K1/K2 on the card) runs where the JAX package
+    takes it: ReLU, no batch_norm, no dropout in training (``masks`` is the
+    training mask source, None in evaluation) and two layers. Otherwise the
+    pair path runs the MLP over ``[S, N, N, E+H]``, its BatchNorm
+    statistics over the valid pairs."""
     if impl not in IMPLS:
         raise ValueError(f"pool impl {impl!r} is not one of {IMPLS}")
     decomposable = (impl != "pair" and activation == "relu"
-                    and not batch_norm
+                    and not batch_norm and (dropout == 0 or masks is None)
                     and len(params["mlp_pre_pool"]["layers"]) == 2)
     if decomposable:
         return _pool_fast(params, h, end_pos, valid, impl)
     rel = end_pos[:, None, :, :] - end_pos[:, :, None, :]   # p_j − p_i
     rel_emb = linear(params["spatial_embedding"], rel)       # [S, N, N, E]
     hj = h[:, None, :, :].expand(*rel_emb.shape[:3], h.shape[-1])
+    pair_mask = valid[:, :, None] * valid[:, None, :]
     feat = mlp_forward(params["mlp_pre_pool"],
                        torch.cat([rel_emb, hj], dim=-1), activation,
-                       batch_norm)
-    pair_mask = (valid[:, :, None] * valid[:, None, :]) > 0
-    feat = feat.masked_fill(~pair_mask[..., None], _NEG)
+                       batch_norm, dropout, mask=pair_mask, masks=masks)
+    feat = feat.masked_fill(~(pair_mask[..., None] > 0), _NEG)
     pooled = feat.amax(dim=2)                                 # max over j
     return torch.where(valid[..., None] > 0, pooled, 0.0)
 

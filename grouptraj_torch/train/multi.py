@@ -54,7 +54,8 @@ from grouptraj_torch.train.loop import (
     make_dispatch_source, make_train_eval_subset,
 )
 from grouptraj_torch.train.steps import (
-    check_accuracy_sweep_many, init_train_state, stack_states,
+    check_accuracy_sweep_many, check_sweepable, init_train_state,
+    stack_states,
     summarize_check_accuracy, train_iterations_many, unstack_state,
 )
 from grouptraj_torch.utils import resolve_device
@@ -111,6 +112,7 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
         raise ValueError(f"{len(draws)} Draws for {len(seeds)} seeds")
     dev = resolve_device(device)
     _check_devices(tcfg, dev)
+    check_sweepable(cfg)
     impl = select_impl(cfg, tcfg)
     if impl != "scan":
         logger.info("train_many: lstm_impl %s -> scan (vmap-safe)", impl)

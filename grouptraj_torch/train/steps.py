@@ -10,9 +10,19 @@
 - the optimizer is clip-by-global-norm then Adam, with the clip written as
   optax writes it (``g / norm * clip`` when ``norm >= clip``), not as
   ``torch.nn.utils.clip_grad_norm_`` does (it divides by ``norm + 1e-6``);
-- every random draw can be injected: the sample noise and the U(0.7, 1.2)
-  label-smoothing scalar. Without an injected value a step draws from the
-  ``torch.Generator`` it is given;
+- every random draw can be injected: the sample noise, the U(0.7, 1.2)
+  label-smoothing scalar and dropout's keep-masks (in the JAX package's
+  order of ``jax.random.bernoulli`` calls). Without an injected value a
+  step draws from the ``torch.Generator`` it is given;
+- with dropout (``dropout`` or ``dropout1``) the g-step runs the
+  per-sample forward, as the JAX package does: each of the k samples its
+  own context, ``generator_forward`` under ``torch.func.vmap`` over the
+  samples' noise and masks, every draw made outside the vmap;
+- with batch_norm the d-step scores fake and real in two discriminator
+  calls (their batch statistics apart), else in one stacked call;
+- the steps run G and D in training mode and the metric pass in eval
+  mode (``nn.Module.train()``/``.eval()``, the JAX package's ``train=``),
+  whatever mode the modules were in;
 - every step takes ``impl``, the LSTM route of all its recurrences
   (``ops/lstm.py``: ``'scan'``, ``'fused'``, the whole-loop kernels, or
   ``'pallas'``, the projection-in-kernel encoders);
@@ -32,8 +42,10 @@ reference's normalisers, and :func:`check_accuracy`, the loader variant.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -47,12 +59,18 @@ from grouptraj_torch.models.generator import (
     LSTMWeights, TrajectoryGenerator, sample_noises,
 )
 from grouptraj_torch.models.modules import GCN, GATLayer
+from grouptraj_torch.ops.linear import (
+    DrawnMasks, InjectedMasks, KeepMasks, ShapeRecorder, as_mask,
+)
 from grouptraj_torch.ops.lstm import select_impl
 from grouptraj_torch.train.device_data import gather_batch
 from grouptraj_torch.utils import relative_to_abs, resolve_device
 
 Batch = Dict[str, torch.Tensor]
 Label = Union[float, torch.Tensor, None]
+# injected keep-masks: a KeepMasks, or the masks (arrays or tensors) in the
+# order a forward asks for them
+Masks = Union[KeepMasks, Sequence, None]
 # a sweep's injected draws: (batch index, S, N) -> (noise [S, N, nd] or
 # None, label-smoothing scalar)
 SweepDraws = Callable[[int, int, int], Tuple[Optional[torch.Tensor], Label]]
@@ -175,21 +193,44 @@ def _trajs(b: Batch, pred_rel_fake: torch.Tensor):
             torch.cat([b["obs_rel"], pred_rel_fake], dim=2))
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.dropout or cfg.dropout1:
-        raise NotImplementedError(
-            "dropout is not ported yet: it needs one context per "
-            "best-of-k sample, the per-sample forward")
+@contextlib.contextmanager
+def _mode(training: bool, *modules: nn.Module):
+    """Run with ``modules`` in training (or eval) mode, then restore."""
+    was = [m.training for m in modules]
+    for m in modules:
+        m.train(training)
+    try:
+        yield
+    finally:
+        for m, w in zip(modules, was):
+            m.train(w)
+
+
+def _dropout(cfg: ModelConfig) -> bool:
+    return bool(cfg.dropout or cfg.dropout1)
+
+
+def mask_source(cfg: ModelConfig, generator: Optional[torch.Generator],
+                masks: Masks = None) -> Optional[KeepMasks]:
+    """The keep-mask source of a training forward: injected masks (a
+    sequence, in the order the forward asks) or a :class:`KeepMasks` as
+    given, else draws from ``generator``; None without dropout."""
+    if not _dropout(cfg):
+        return None
+    if masks is None:
+        return DrawnMasks(generator)
+    return masks if isinstance(masks, KeepMasks) else InjectedMasks(masks)
 
 
 def d_step(state: TrainState, batch: Batch, cfg: ModelConfig,
            tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None, label: Label = None,
-           impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+           impl: Optional[str] = None, masks: Masks = None
+           ) -> Dict[str, torch.Tensor]:
     """Discriminator step (reference ``train.py:395-429``): the loss and
     gradients of :func:`d_gradients`, then clip and Adam on D."""
     losses, grads = d_gradients(state, batch, cfg, tcfg, generator, noise,
-                                label, impl)
+                                label, impl, masks)
     losses["norm_d"] = _apply(state.d_opt, list(state.d.parameters()), grads,
                               tcfg.clipping_threshold_d)
     return losses
@@ -199,16 +240,17 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None, label: Label = None,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, masks: Masks = None):
     """The d-step's losses and the gradient of each of D's parameters (in
     ``state.d.parameters()`` order), nothing updated. ``noise``
-    ``[S, N, noise_dim]`` and ``label`` (the U(0.7, 1.2) scalar) replace
-    the draws from ``generator``."""
-    _check_trainable(cfg)
+    ``[S, N, noise_dim]``, ``label`` (the U(0.7, 1.2) scalar) and
+    ``masks`` (the keep-masks of the generator leg, then of D's calls)
+    replace the draws from ``generator``."""
     impl = select_impl(cfg, tcfg) if impl is None else impl
     kw = d_draws(cfg, *batch["valid"].shape, generator, batch["valid"].device,
                  noise, label)
-    data_loss = d_loss(state.g, state.d, batch, cfg, tcfg, impl=impl, **kw)
+    data_loss = d_loss(state.g, state.d, batch, cfg, tcfg, impl=impl,
+                       masks=mask_source(cfg, generator, masks), **kw)
     grads = torch.autograd.grad(data_loss, list(state.d.parameters()))
     data_loss = data_loss.detach()
     return {"D_data_loss": data_loss, "D_total_loss": data_loss}, grads
@@ -229,9 +271,15 @@ def d_draws(cfg: ModelConfig, S: int, N: int,
 def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
            cfg: ModelConfig, tcfg: TrainConfig,
            noise: Optional[torch.Tensor], label: Union[float, torch.Tensor],
-           impl: str) -> torch.Tensor:
-    """The d-step's loss from its draws (:func:`d_draws`); draws nothing
-    itself, so it runs under ``torch.func.vmap``."""
+           impl: str, masks: Optional[KeepMasks] = None) -> torch.Tensor:
+    """The d-step's loss from its draws (:func:`d_draws`) and its mask
+    source (the generator leg's masks, then D's); without dropout it draws
+    nothing, so it runs under ``torch.func.vmap``."""
+    with _mode(True, g, d):
+        return _d_loss(g, d, b, cfg, tcfg, noise, label, impl, masks)
+
+
+def _d_loss(g, d, b, cfg, tcfg, noise, label, impl, masks):
     S = b["valid"].shape[0]
     with torch.no_grad():
         # no gradient flows through the generator here; with bf16_nograd
@@ -239,8 +287,8 @@ def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
         # feeds the pool kernel; the decode is where the rows are) on the
         # same float32-drawn noise
         ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"],
-                                  b["valid"], impl)
-        at = dict(obs=b["obs"], group_end=b["group"])
+                                  b["valid"], impl, masks)
+        at = dict(obs=b["obs"], group_end=b["group"], masks=masks)
         if tcfg.bf16_nograd:
             pred_rel_fake = g.generator_sample(
                 ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"],
@@ -250,22 +298,28 @@ def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
                 ctx, b["obs_rel"], b["valid"], user_noise=noise, impl=impl,
                 **at)
     tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
+    if cfg.batch_norm:
+        # batch statistics couple the scenes of a call: fake, then real
+        scores_fake = d(tf, tfr, b["valid"], impl, masks)
+        scores_real = d(tr, trr, b["valid"], impl, masks)
+        return L.gan_d_loss(scores_real, scores_fake, label, b["valid"])
     # real and fake scored in ONE stacked forward: scenes are independent
     # rows, so this halves the discriminator's sequential depth
     scores = d(torch.cat([tr, tf], dim=0), torch.cat([trr, tfr], dim=0),
-               torch.cat([b["valid"], b["valid"]], dim=0), impl)
+               torch.cat([b["valid"], b["valid"]], dim=0), impl, masks)
     return L.gan_d_loss(scores[:S], scores[S:], label, b["valid"])
 
 
 def g_step(state: TrainState, batch: Batch, cfg: ModelConfig,
            tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
            noises: Optional[torch.Tensor] = None, label: Label = None,
-           impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+           impl: Optional[str] = None, sample_masks: Optional[Sequence] = None,
+           d_masks: Masks = None) -> Dict[str, torch.Tensor]:
     """Generator step (reference ``train.py:432-484``): the losses and
     gradients of :func:`g_gradients`, then clip and Adam on G, then the
     EMA when ``g_ema_decay > 0``."""
     losses, grads = g_gradients(state, batch, cfg, tcfg, generator, noises,
-                                label, impl)
+                                label, impl, sample_masks, d_masks)
     losses["norm_g"] = _apply(state.g_opt, list(state.g.parameters()), grads,
                               tcfg.clipping_threshold_g)
     if state.ema_g is not None and tcfg.g_ema_decay > 0:
@@ -280,18 +334,26 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig,
                 generator: Optional[torch.Generator] = None,
                 noises: Optional[torch.Tensor] = None, label: Label = None,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None,
+                sample_masks: Optional[Sequence] = None,
+                d_masks: Masks = None):
     """The g-step's losses (best-of-k variety + adversarial) and the
     gradient of each of G's parameters (in ``state.g.parameters()`` order),
-    nothing updated. ``noises`` ``[best_k, S, N, noise_dim]`` and ``label``
-    replace the draws from ``generator``. The losses are :func:`g_loss`'s.
-    """
-    _check_trainable(cfg)
+    nothing updated. ``noises`` ``[best_k, S, N, noise_dim]``, ``label``,
+    ``sample_masks`` (with dropout: per sample, the masks of its
+    ``generator_forward`` in order) and ``d_masks`` (D's) replace the
+    draws from ``generator``. The losses are :func:`g_loss`'s."""
     impl = select_impl(cfg, tcfg) if impl is None else impl
-    kw = g_draws(cfg, tcfg, *batch["valid"].shape, generator,
-                 batch["valid"].device, noises, label)
+    S, N = batch["valid"].shape
+    dev = batch["valid"].device
+    kw = g_draws(cfg, tcfg, S, N, generator, dev, noises, label)
+    if _dropout(cfg):
+        kw["sample_masks"] = stacked_sample_masks(
+            cfg, tcfg.best_k, S, N, generator, dev, sample_masks)
     variety, adv, total = g_loss(state.g, state.d, batch, cfg, tcfg,
-                                 impl=impl, **kw)
+                                 impl=impl,
+                                 d_masks=mask_source(cfg, generator, d_masks),
+                                 **kw)
     # gradients with respect to G only: D's parameters are constants here
     # and their .grad is never touched
     grads = torch.autograd.grad(total, list(state.g.parameters()))
@@ -311,12 +373,76 @@ def g_draws(cfg: ModelConfig, tcfg: TrainConfig, S: int, N: int,
     return dict(noises=noises, label=_label(label, generator, device))
 
 
+@functools.lru_cache(maxsize=64)
+def sample_mask_shapes(cfg: ModelConfig, S: int, N: int
+                       ) -> Tuple[Tuple[Tuple[int, ...], float], ...]:
+    """The (shape, keep probability) of every keep-mask one training
+    ``generator_forward`` of ``cfg`` asks for on ``[S, N]`` scenes, in
+    order: a dry run on the ``meta`` device, which computes nothing."""
+    with torch.device("meta"):
+        g = TrajectoryGenerator(cfg)
+        To, nd = cfg.obs_len, cfg.noise_first_dim
+        obs = torch.zeros(S, N, To, 2)
+        lab, valid = torch.zeros(S, N), torch.ones(S, N)
+        z = torch.zeros(S, N, nd) if nd else None
+    rec = ShapeRecorder()
+    with torch.no_grad():
+        g.generator_forward(obs, obs, lab, valid, user_noise=z, masks=rec)
+    return tuple(rec.asked)
+
+
+def stacked_sample_masks(cfg: ModelConfig, K: int, S: int, N: int,
+                         generator: Optional[torch.Generator], device,
+                         sample_masks: Optional[Sequence] = None
+                         ) -> List[torch.Tensor]:
+    """The per-sample g-step's keep-masks, one ``[K, ...]`` bool tensor a
+    mask of the forward: ``sample_masks`` (K sequences of masks, sample by
+    sample) stacked, or drawn from ``generator`` at the shapes
+    :func:`sample_mask_shapes` finds, mask by mask."""
+    if sample_masks is not None:
+        if len(sample_masks) != K:
+            raise ValueError(f"{len(sample_masks)} samples' masks for "
+                             f"best_k={K}")
+        per = [list(ms) for ms in sample_masks]
+        if len({len(ms) for ms in per}) != 1:
+            raise ValueError("the samples were given different numbers of "
+                             "masks")
+        return [torch.stack([as_mask(ms[i], device) for ms in per])
+                for i in range(len(per[0]))]
+    return [torch.rand((K, *shape), generator=generator, device=device) < keep
+            for shape, keep in sample_mask_shapes(cfg, S, N)]
+
+
+def _per_sample_preds(g: TrajectoryGenerator, b: Batch,
+                      noises: Optional[torch.Tensor],
+                      sample_masks: List[torch.Tensor], impl: str
+                      ) -> torch.Tensor:
+    """k training forwards, one context each (the JAX package's vmap of
+    ``generator_forward`` over the sample keys): ``torch.func.vmap`` over
+    the samples' noise and keep-masks -> [k, S, N, Tp, 2]. K1/K2 run at
+    R = k through ``PoolCore.vmap``, the decoder's K3/K4 at k·S·N rows."""
+    def one(z, ms):
+        return g.generator_forward(b["obs"], b["obs_rel"], b["group"],
+                                   b["valid"], user_noise=z, impl=impl,
+                                   masks=InjectedMasks(ms))
+
+    return torch.func.vmap(one, in_dims=(None if noises is None else 0, 0))(
+        noises, sample_masks)
+
+
 def g_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
            cfg: ModelConfig, tcfg: TrainConfig,
            noises: Optional[torch.Tensor], label: Union[float, torch.Tensor],
-           impl: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           impl: str, sample_masks: Optional[List[torch.Tensor]] = None,
+           d_masks: Optional[KeepMasks] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The g-step's (variety, adversarial, total) losses from its draws
-    (:func:`g_draws`); draws nothing, so it runs under ``torch.func.vmap``.
+    (:func:`g_draws`, :func:`stacked_sample_masks`) and D's mask source;
+    without dropout it draws nothing, so it runs under ``torch.func.vmap``.
+
+    With dropout each sample runs its own forward
+    (:func:`_per_sample_preds`) and the variety loss takes all k with
+    grad.
 
     Sparse path (``tcfg.sparse_best_k``): the variety min only propagates
     through the per-scene ARGMIN sample and the adversarial term through
@@ -327,15 +453,24 @@ def g_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
     dense path decodes all k with grad; it is taken whenever the decoder
     re-pools at every step (``pool_every_timestep``), as in the JAX
     package."""
+    with _mode(True, g, d):
+        return _g_loss(g, d, b, cfg, tcfg, noises, label, impl,
+                       sample_masks, d_masks)
+
+
+def _g_loss(g, d, b, cfg, tcfg, noises, label, impl, sample_masks,
+            d_masks):
     k = tcfg.best_k
     S, N = b["valid"].shape
     dev = b["valid"].device
     pred_loss_mask = b["loss_mask"][..., cfg.obs_len:]
-    sparse = (tcfg.sparse_best_k and tcfg.l2_loss_weight > 0 and k > 1
-              and not cfg.pool_every_timestep)
+    share_ctx = not _dropout(cfg)
+    sparse = (share_ctx and tcfg.sparse_best_k and tcfg.l2_loss_weight > 0
+              and k > 1 and not cfg.pool_every_timestep)
 
-    ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"], b["valid"],
-                              impl)
+    if share_ctx:
+        ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"],
+                                  b["valid"], impl)
     if sparse:
         with torch.no_grad():
             if tcfg.bf16_nograd:
@@ -363,16 +498,21 @@ def g_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
             L.variety_scene_l2(pred_sel, b["pred_rel"], pred_loss_mask,
                                b["valid"], tcfg.l2_loss_weight), denom)
     else:
-        preds = g.generator_sample_many(ctx, b["obs_rel"], b["valid"], k,
-                                        user_noises=noises, impl=impl,
-                                        obs=b["obs"], group_end=b["group"])
+        if share_ctx:
+            preds = g.generator_sample_many(ctx, b["obs_rel"], b["valid"], k,
+                                            user_noises=noises, impl=impl,
+                                            obs=b["obs"],
+                                            group_end=b["group"])
+        else:
+            preds = _per_sample_preds(g, b, noises, sample_masks, impl)
         variety = L.variety_l2_loss(
             preds, b["pred_rel"], pred_loss_mask, b["valid"],
             tcfg.l2_loss_weight) if tcfg.l2_loss_weight > 0 \
-            else ctx.new_zeros(())
+            else preds.new_zeros(())
         pred_last = preds[-1]
     _, _, tf, tfr = _trajs(b, pred_last)
-    adv = L.gan_g_loss(d(tf, tfr, b["valid"], impl), label, b["valid"])
+    adv = L.gan_g_loss(d(tf, tfr, b["valid"], impl, d_masks), label,
+                       b["valid"])
     return variety, adv, variety + adv
 
 
@@ -390,8 +530,9 @@ def train_iterations(state: TrainState, data: Dict[str, torch.Tensor],
 
     ``draws``, when given, holds per iteration ``{"d": [...], "g": [...]}``
     with one ``dict(noise=, label=)`` per d-step and one
-    ``dict(noises=, label=)`` per g-step — the injected randomness; else
-    every draw comes from ``generator``."""
+    ``dict(noises=, label=)`` per g-step — the injected randomness, with
+    dropout also the d-step's ``masks`` and the g-step's ``sample_masks``
+    and ``d_masks``; else every draw comes from ``generator``."""
     impl = select_impl(cfg, tcfg) if impl is None else impl
     history: List[Dict[str, torch.Tensor]] = []
     for it, bidx in enumerate(idx):
@@ -440,8 +581,13 @@ def accuracy_sums(g: TrajectoryGenerator, d: TrajectoryDiscriminator,
                   label: Union[float, torch.Tensor], impl: str
                   ) -> Dict[str, torch.Tensor]:
     """One batch's raw metric sums from its draws (the noise, then the
-    label: a d-step's, :func:`d_draws`); draws nothing, so it runs under
-    ``torch.func.vmap``."""
+    label: a d-step's, :func:`d_draws`), G and D in eval mode (no
+    dropout); draws nothing, so it runs under ``torch.func.vmap``."""
+    with _mode(False, g, d):
+        return _accuracy_sums(g, d, b, cfg, noise, label, impl)
+
+
+def _accuracy_sums(g, d, b, cfg, noise, label, impl):
     valid = b["valid"]
     linear = (1.0 - b["non_linear"]) * valid
     non_linear = b["non_linear"] * valid
@@ -744,6 +890,17 @@ def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
     return losses
 
 
+def check_sweepable(cfg: ModelConfig) -> None:
+    """A multi-seed sweep runs every option but dropout: its per-sample
+    forward would be a vmap nested in the seed vmap, with each seed's
+    keep-masks drawn outside both."""
+    if _dropout(cfg):
+        raise NotImplementedError(
+            "dropout (dropout or dropout1) in a multi-seed sweep is not "
+            "ported yet (ROADMAP.md queue 1): train each seed with "
+            "train() meanwhile")
+
+
 def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
                           idx: torch.Tensor, cfg: ModelConfig,
                           tcfg: TrainConfig,
@@ -754,7 +911,10 @@ def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
     schedule ``idx`` ``[iterations, d_steps + g_steps, S]``. Replica i
     draws from ``generators[i]`` in a step's order, or takes
     ``draws[i][it]`` (the per-iteration dicts of :func:`train_iterations`).
-    Returns every loss and norm stacked ``[N, iterations]``."""
+    Returns every loss and norm stacked ``[N, iterations]``. With
+    batch_norm the d-step scores fake and real in two calls, as
+    :func:`d_step` does; dropout raises (:func:`check_sweepable`)."""
+    check_sweepable(cfg)
     dev = data["valid"].device
     history: List[Dict[str, torch.Tensor]] = []
     for it, bidx in enumerate(idx):

@@ -38,6 +38,7 @@ from grouptraj_torch.compat import (
     config_from_checkpoint_args, discriminator_state, generator_state,
     params_from_jax,
 )
+from grouptraj_torch.config import MODEL_PRESETS as PORT_PRESETS
 from grouptraj_torch.config import ModelConfig
 from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
 from grouptraj_torch.models.generator import TrajectoryGenerator
@@ -70,13 +71,23 @@ def test_params_from_jax_matches_export_state_dicts():
 
 
 def test_params_from_jax_rejects_other_presets():
-    """Every preset's tree is ported; a batch_norm MLP is not yet."""
-    params = jax.device_get(init_generator(jax.random.PRNGKey(0),
-                                           dataclasses.replace(
-                                               MODEL_PRESETS["gcn"],
-                                               batch_norm=True)))
-    with pytest.raises(NotImplementedError):
-        params_from_jax(params)
+    """Every preset's tree is ported, a batch_norm MLP's too: the
+    ``gcn`` preset with batch_norm (its context MLP's BatchNorm1d entries
+    at make_mlp's indices, the running statistics 0 and 1) bridges to
+    exactly ``export_state_dicts``' names, order and values, which the
+    port's generator takes."""
+    cfg = dataclasses.replace(MODEL_PRESETS["gcn"], batch_norm=True)
+    params = jax.device_get(init_generator(jax.random.PRNGKey(0), cfg))
+    ref = export_state_dicts(params, "generator")
+    out = params_from_jax(params)
+    assert list(out) == list(ref)
+    assert any(k.endswith(".running_mean") for k in out)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    port_cfg = dataclasses.replace(PORT_PRESETS["gcn"], batch_norm=True)
+    sd = TrajectoryGenerator(port_cfg).state_dict()
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {
+        k: v.shape for k, v in out.items()}
 
 
 def test_train_state_bridge_round_trips():

@@ -9,6 +9,7 @@ sum in another order).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -19,9 +20,12 @@ import torch
 from grouptraj.compat.torch_import import export_state_dicts
 from grouptraj.config import ModelConfig as JaxConfig
 from grouptraj.models import discriminator_forward, init_discriminator
-from grouptraj_torch.compat import discriminator_state, params_from_jax
+from grouptraj_torch.compat import (
+    discriminator_state, params_from_jax, params_to_jax,
+)
 from grouptraj_torch.config import ModelConfig
 from grouptraj_torch.models.discriminator import TrajectoryDiscriminator
+from grouptraj_torch.train.steps import init_parameters
 
 NARROW = dict(embedding_dim=8, encoder_h_dim_d=12, mlp_dim=16, obs_len=4,
               pred_len=5)
@@ -110,10 +114,53 @@ def test_scores_and_gradients_match(pool_impl):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        TrajectoryDiscriminator(ModelConfig(batch_norm=True))
-    model = TrajectoryDiscriminator(dataclasses.replace(
-        ModelConfig(**NARROW), dropout=0.5))
-    x = torch.zeros(1, 2, 9, 2)
-    with pytest.raises(NotImplementedError):
-        model(x, x, torch.ones(1, 2))
+    """The variants once refused now match grouptraj: batch_norm (its
+    statistics over the valid rows, in evaluation too) and, in training
+    mode, dropout with JAX's keep-masks injected in its order of draws (the
+    pool's two layers, then the classifier's)."""
+    from grouptraj_torch.ops.linear import InjectedMasks
+
+    rng = np.random.default_rng(2)
+    T = NARROW["obs_len"] + NARROW["pred_len"]
+    rel = rng.normal(scale=0.3, size=(S, N, T, 2)).astype(np.float32)
+    traj = np.cumsum(rel, axis=2)
+    valid = (rng.uniform(size=(S, N)) > 0.3).astype(np.float32)
+    valid[0] = 1.0
+    for opts in (dict(batch_norm=True), dict(dropout=0.5)):
+        jcfg, cfg = JaxConfig(**NARROW, **opts), ModelConfig(**NARROW, **opts)
+        # the JAX package's initialisation drawn by the port (its eager
+        # JAX initialiser compiles one program per leaf), carried over
+        model = TrajectoryDiscriminator(cfg)
+        init_parameters(model, torch.Generator().manual_seed(1))
+        params = params_to_jax(model.state_dict(), "discriminator")
+        params["real_classifier"]["layers"][-1]["linear"]["b"] += 1.0
+        model.load_state_dict(discriminator_state(
+            params_from_jax(params, "discriminator")))
+        orig = jax.random.bernoulli
+
+        @functools.partial(jax.jit, compiler_options=dict(
+            xla_backend_optimization_level=0,
+            xla_llvm_disable_expensive_passes=True))
+        def forward(p):
+            """D's training-mode scores and, as outputs, every keep-mask
+            it draws (``jax.random.bernoulli`` recorded while tracing)."""
+            masks = []
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(jax.random, "bernoulli",
+                          lambda *a: masks.append(orig(*a)) or masks[-1])
+                return discriminator_forward(p, jcfg, traj, rel, valid,
+                                             jax.random.PRNGKey(4)), masks
+
+        ref, masks = jax.tree_util.tree_map(np.asarray, forward(params))
+        assert len(masks) == (4 if cfg.dropout else 0)
+        with torch.no_grad():
+            got = model(_t(traj), _t(rel), _t(valid),
+                        masks=InjectedMasks(masks))
+            np.testing.assert_allclose(got.numpy(), ref, atol=1e-5,
+                                       rtol=1e-5, err_msg=str(opts))
+            model.eval()
+            ref = np.asarray(discriminator_forward(params, jcfg, traj, rel,
+                                                   valid, train=False))
+            np.testing.assert_allclose(model(_t(traj), _t(rel), _t(valid)),
+                                       ref, atol=1e-5, rtol=1e-5,
+                                       err_msg=str(opts))

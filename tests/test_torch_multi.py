@@ -30,6 +30,7 @@ so those two vectors are held to 2 lr an iteration (1.35 lr measured
 after four iterations).
 """
 
+import dataclasses
 import logging
 import os
 import shutil
@@ -59,6 +60,9 @@ from grouptraj_torch.train import checkpoint as CK
 from grouptraj_torch.train import loop as LOOP
 from grouptraj_torch.train import multi as MULTI
 from grouptraj_torch.train import steps as TS
+from grouptraj_torch.train.device_data import (
+    gather_batch, synthetic_device_data,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = dict(embedding_dim=8, encoder_h_dim_g=16, decoder_h_dim_g=16,
@@ -416,11 +420,67 @@ def _retime(out, seed, t):
     CK.save_checkpoint(ck, path, "ck")
 
 
+def test_batch_norm_sweep_steps_match_single_steps():
+    """A batch_norm + leakyrelu model through the sweep's steps (two seeds
+    stacked, the d-step's fake and real scored apart under the seed vmap)
+    equals each seed's own steps: the gradients of ``d_loss``/``g_loss``
+    under ``replica_map`` against ``d_gradients``/``g_gradients`` at 1e-5
+    of the largest entry (a vmapped matmul rounds differently), and the
+    losses of ``d_step_many``/``g_step_many`` against ``d_step``/``g_step``
+    at 1e-5 relative."""
+    cfg = ModelConfig(**NARROW, batch_norm=True, activation="leakyrelu")
+    tcfg = TrainConfig(**TRAIN)
+    states = [TS.init_train_state(cfg, tcfg, torch.Generator().manual_seed(
+        s), device="cpu") for s in SEEDS]
+    st = TS.stack_states(states, tcfg)
+    data = synthetic_device_data(8, 5, cfg.obs_len, cfg.pred_len, seed=3,
+                                 device="cpu")
+    b = gather_batch(data, torch.tensor([0, 1, 2, 3]), cfg.obs_len)
+    gens = [torch.Generator().manual_seed(10 + i) for i in range(2)]
+    dd = [TS.d_draws(cfg, S, 5, g, "cpu") for g in gens]
+    gd = [TS.g_draws(cfg, tcfg, S, 5, g, "cpu") for g in gens]
+
+    def check_grads(loss_fn, draws, stacked, single):
+        loss = TS.replica_map(st, loss_fn, *TS._stack_draws(draws,
+                                                            "cpu").values())
+        if isinstance(loss, tuple):
+            loss = loss[-1]
+        grads = torch.autograd.grad(loss.sum(), list(stacked.values()))
+        for i, state in enumerate(states):
+            ref = single(state, b, cfg, tcfg, impl="scan", **draws[i])[1]
+            top = max(float(r.abs().max()) for r in ref)
+            for name, g, r in zip(stacked, grads, ref):
+                np.testing.assert_allclose(g[i].numpy(), r.numpy(), rtol=0,
+                                           atol=1e-5 * top, err_msg=name)
+
+    check_grads(lambda g, d, z, y: TS.d_loss(g, d, b, cfg, tcfg, z, y,
+                                             "scan"),
+                dd, st.d_params, TS.d_gradients)
+    many = TS.d_step_many(st, b, cfg, tcfg, impl="scan",
+                          **TS._stack_draws(dd, "cpu"))
+    ones = [TS.d_step(state, b, cfg, tcfg, impl="scan", **dd[i])
+            for i, state in enumerate(states)]
+    check_grads(lambda g, d, z, y: TS.g_loss(g, d, b, cfg, tcfg, z, y,
+                                             "scan"),
+                gd, st.g_params, TS.g_gradients)
+    many.update(TS.g_step_many(st, b, cfg, tcfg, impl="scan",
+                               **TS._stack_draws(gd, "cpu")))
+    for i, state in enumerate(states):
+        ones[i].update(TS.g_step(state, b, cfg, tcfg, impl="scan", **gd[i]))
+        for k, v in ones[i].items():
+            np.testing.assert_allclose(float(many[k][i]), float(v),
+                                       rtol=RTOL, err_msg=k)
+
+
 @pytest.mark.parametrize("case", [
     "duplicate", "partial", "mismatch", "unequal_t", "beyond", "devices",
-    "cli"])
+    "dropout", "cli"])
 def test_refusals_and_cli(case, data_root, tmp_path):
-    if case == "duplicate":
+    if case == "dropout":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            MULTI.train_many(dataclasses.replace(CFG, dropout1=0.1),
+                             _small(str(tmp_path)), SEEDS, device="cpu")
+    elif case == "duplicate":
         with pytest.raises(ValueError, match="duplicate"):
             MULTI.train_many(CFG, _small(str(tmp_path)), [5, 5],
                              device="cpu")

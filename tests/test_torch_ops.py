@@ -18,13 +18,13 @@ from grouptraj.models.modules import gat_encoder as jax_gat_encoder
 from grouptraj.models.modules import init_gat_encoder
 from grouptraj.utils import relative_to_abs as jax_relative_to_abs
 from grouptraj_torch.models.modules import gat_encoder
-from grouptraj_torch.ops import gat, groups, linear, lstm
+from grouptraj_torch.ops import gat, groups, linear, lstm, pooling
 from grouptraj_torch.utils import relative_to_abs
 
 # grouptraj.ops re-exports functions under its submodules' names
-jgat, jgroups, jlinear, jlstm = (
+jgat, jgroups, jlinear, jlstm, jpooling = (
     importlib.import_module(f"grouptraj.ops.{m}")
-    for m in ("gat", "groups", "linear", "lstm"))
+    for m in ("gat", "groups", "linear", "lstm", "pooling"))
 
 ATOL = 1e-5
 
@@ -72,8 +72,36 @@ def test_linear_and_mlp_match():
     _close(linear.linear(_tree(p["layers"][0]["linear"]), _t(x)),
            jlinear.linear(p["layers"][0]["linear"], x))
     _close(linear.mlp_forward(_tree(p), _t(x)), jlinear.mlp_forward(p, x))
-    with pytest.raises(NotImplementedError):
-        linear.mlp_forward(_tree(p), _t(x), activation="leakyrelu")
+    for act in ("leakyrelu", "none"):
+        _close(linear.mlp_forward(_tree(p), _t(x), activation=act),
+               jlinear.mlp_forward(p, x, activation=act))
+
+
+def test_pair_pool_batch_norm_masks_padding():
+    """The pair pool's BatchNorm takes its statistics over the valid pairs
+    only (``mask=pair_mask``, grouptraj/ops/pooling.py:107-108): with
+    padded pedestrians, at positions and states that would move the
+    statistics, it matches grouptraj; statistics over every pair would
+    not."""
+    rng = np.random.default_rng(3)
+    S, N, H, E, B = 3, 6, 10, 4, 7
+    params = jpooling.init_pool_hidden_net(jax.random.PRNGKey(2), E, H, B,
+                                           batch_norm=True)
+    h = rng.normal(size=(S, N, H)).astype(np.float32)
+    pos = rng.normal(size=(S, N, 2)).astype(np.float32)
+    valid = np.ones((S, N), np.float32)
+    valid[0, 4:] = valid[1, 2:] = 0.0
+    h[valid == 0] = 5.0                      # padding that moves the stats
+    pos[valid == 0] = -7.0
+    ref = jpooling.pool_hidden_net(params, h, pos, valid, "leakyrelu", True,
+                                   impl="pair")
+    got = pooling.pool_hidden_net(_tree(params), _t(h), _t(pos), _t(valid),
+                                  "leakyrelu", True, impl="pair")
+    _close(got, ref, 1e-4)
+    unmasked = jpooling.pool_hidden_net(params, h, pos, np.ones_like(valid),
+                                        "leakyrelu", True, impl="pair")
+    assert np.abs(np.asarray(unmasked) - np.asarray(ref))[valid > 0].max() \
+        > 1e-2
 
 
 def test_groups_match():

@@ -442,7 +442,13 @@ def test_new_trees_round_trip_with_adam_moments():
 
 def test_missing_inputs_and_unported_options_raise():
     """The per-step decoder without ``obs``/``group_end`` is a loud error;
-    batch_norm, the non-ReLU activations and dropout still raise."""
+    batch_norm, the non-ReLU activations and dropout, once refused, match
+    grouptraj: a batch_norm + leakyrelu + dropout per-step decoder's k=3
+    positions in eval mode (BN on the tiled batch, no dropout) and in
+    training mode with JAX's keep-masks (each step's pool, then its MLP,
+    drawn at the tiled shape and shared by the samples)."""
+    from grouptraj_torch.ops.linear import InjectedMasks
+
     _, cfg = _configs("gat-pet")
     g = TrajectoryGenerator(cfg)
     ctx = torch.zeros(1, 2, cfg.decoder_context_dim)
@@ -451,21 +457,53 @@ def test_missing_inputs_and_unported_options_raise():
                                 torch.ones(1, 2), 2)
     with pytest.raises(ValueError, match="pooling_type"):
         TrajectoryGenerator(dataclasses.replace(cfg, pooling_type="none"))
-    for bad in (dict(batch_norm=True), dict(activation="leakyrelu")):
-        with pytest.raises(NotImplementedError):
-            TrajectoryGenerator(dataclasses.replace(cfg, **bad))
-        with pytest.raises(NotImplementedError):
-            TrajectoryDiscriminator(dataclasses.replace(cfg, **bad))
-    bn = jax.device_get(init_generator(jax.random.PRNGKey(0), JaxModelConfig(
-        pool_every_timestep=True, batch_norm=True)))
-    with pytest.raises(NotImplementedError):
-        params_from_jax(bn)
-    drop = dataclasses.replace(cfg, dropout=0.1)
-    state = TS.train_state_from_modules(TrajectoryGenerator(drop),
-                                        TrajectoryDiscriminator(drop), TCFG)
-    batch = {k: _t(v) for k, v in synthetic_batch(
-        S, N, cfg.obs_len, cfg.pred_len, seed=5).items()}
-    with pytest.raises(NotImplementedError):
-        TS.d_step(state, batch, drop, TCFG)
-    with pytest.raises(NotImplementedError):
-        TS.g_step(state, batch, drop, TCFG)
+
+    opts = dict(batch_norm=True, activation="leakyrelu", dropout=0.2)
+    jcfg, cfg = (dataclasses.replace(c, **opts) for c in _configs("gat-pet"))
+    # the JAX package's initialisation drawn by the port (its eager JAX
+    # initialiser compiles one program per leaf), carried over
+    g = TrajectoryGenerator(cfg)
+    TS.init_parameters(g, torch.Generator().manual_seed(4))
+    params = params_to_jax(g.state_dict())
+    batch = synthetic_batch(S, N, jcfg.obs_len, jcfg.pred_len, seed=6)
+    b = {k: _t(v) for k, v in batch.items()}
+    ctx = np.random.default_rng(6).normal(
+        size=(S, N, jcfg.decoder_context_dim)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    noises = _t(jax_sample_noises(jcfg, keys, S, N, jnp.float32))
+    last = b["obs"][None, :, :, -1]
+
+    def unrolled_scan(f, init, xs, **_):
+        """``lax.scan`` as a Python loop, so the decoder's per-step draws
+        are values of the traced program, not of a loop body."""
+        carry, ys = init, []
+        for i in range(jax.tree_util.tree_leaves(xs)[0].shape[0]):
+            carry, y = f(carry, jax.tree_util.tree_map(lambda x: x[i], xs))
+            ys.append(y)
+        return carry, jax.tree_util.tree_map(lambda *a: jnp.stack(a), *ys)
+
+    def run(p, c, b, train):
+        return jax_sample(p, jcfg, c, b["obs"], b["obs_rel"], b["group"],
+                          b["valid"], keys, train=train)
+
+    preds_ref = _jit(functools.partial(run, train=False))(params, ctx, batch)
+    with pytest.MonkeyPatch.context() as m:
+        orig, masks = jax.random.bernoulli, []
+        m.setattr(jax.random, "bernoulli",
+                  lambda *a: masks.append(orig(*a)) or masks[-1])
+        m.setattr(jax.lax, "scan", unrolled_scan)
+        train_ref, masks = _jit(lambda *a: (run(*a, train=True), masks))(
+            params, ctx, batch)
+    assert len(masks) == 4 * jcfg.pred_len
+    masks = [np.asarray(x) for x in masks]
+    with torch.no_grad():
+        for mode, ref, src in ((False, preds_ref, None),
+                               (True, train_ref, InjectedMasks(masks))):
+            g.train(mode)
+            preds = g.generator_sample_many(
+                _t(ctx), b["obs_rel"], b["valid"], 3, obs=b["obs"],
+                group_end=b["group"], user_noises=noises, masks=src)
+            np.testing.assert_allclose(
+                relative_to_abs(preds, last).numpy(),
+                relative_to_abs(_t(np.asarray(ref)), last).numpy(), rtol=0,
+                atol=1e-4, err_msg=f"train={mode}")

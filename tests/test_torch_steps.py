@@ -334,13 +334,51 @@ def test_draws_come_from_the_generator_when_not_injected():
 
 
 def test_dropout_configs_raise(jax_run):
+    """``dropout1``, once refused, trains: the g-step's per-sample forward
+    (``generator_forward`` under ``torch.func.vmap`` over the samples'
+    noise and JAX's keep-masks) equals grouptraj's ``generator_forward``
+    vmapped over the same sample keys, positions at 1e-4 m; a d-step and a
+    g-step drawing their masks from a generator give finite losses."""
+    from grouptraj.models.generator import generator_forward as jax_forward
+
     init, arrays, _ = jax_run
-    state = _port_state(init)
     cfg = dataclasses.replace(CFG, dropout1=0.1)
-    with pytest.raises(NotImplementedError):
-        TS.g_step(state, _batch(arrays), cfg, TCFG)
-    with pytest.raises(NotImplementedError):
-        TS.d_step(state, _batch(arrays), cfg, TCFG)
+    jcfg = dataclasses.replace(JCFG, dropout1=0.1)
+    state = _port_state(init, cfg=cfg)
+    b = _batch(arrays)
+    jparams = jax.tree_util.tree_map(np.asarray, params_to_jax(init[0]))
+    keys = jax.random.split(jax.random.PRNGKey(9), TRAIN["best_k"])
+    orig = jax.random.bernoulli
+
+    def one(p, a, k):
+        masks = []
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(jax.random, "bernoulli",
+                      lambda *x: masks.append(orig(*x)) or masks[-1])
+            pred = jax_forward(p, jcfg, a["obs"], a["obs_rel"], a["group"],
+                               a["valid"], k)
+        return pred, masks
+
+    # positions only: XLA's cheaper CPU pipeline (test_torch_presets.py's)
+    # moves no value beyond the last bits
+    preds_ref, stacked = jax.jit(
+        jax.vmap(one, in_axes=(None, None, 0)), compiler_options=dict(
+            xla_backend_optimization_level=0,
+            xla_llvm_disable_expensive_passes=True))(jparams, arrays, keys)
+    masks = TS.stacked_sample_masks(cfg, TRAIN["best_k"], S, N, None, "cpu",
+                                    [[np.asarray(m[i]) for m in stacked]
+                                     for i in range(TRAIN["best_k"])])
+    assert masks
+    with torch.no_grad():
+        preds = TS._per_sample_preds(
+            state.g, b, _t(jax_sample_noises(jcfg, keys, S, N, np.float32)),
+            masks, "scan")
+    np.testing.assert_allclose(preds.numpy(), np.asarray(preds_ref),
+                               rtol=0, atol=1e-4)
+    gen = torch.Generator().manual_seed(3)
+    losses = {**TS.d_step(state, b, cfg, TCFG, gen),
+              **TS.g_step(state, b, cfg, TCFG, gen)}
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
 
 
 # the zoo's other two models at narrow widths: gat-mh's first layer takes
