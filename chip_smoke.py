@@ -126,7 +126,19 @@ Phases, each of which fails the run on any error:
    samples) runs K3/K4 at 81,920 folded rows, held against their plain
    versions at that shape and timed beside their bounds, and K1/K2 once,
    unbatched (options_phase);
-12. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
+12. many dropout: dropout in multi-seed sweeps (many_dropout_phase):
+   train_many of the gat preset from ``--dropout1 0.2`` at full width,
+   4 seeds, each drawing its keep-masks from its own generator in
+   train()'s order, the g-step's per-sample vmap nested in the seed vmap:
+   one 4-seed iteration against each seed's single-seed step on the same
+   draws (K1 x4 and K2 x3 at R = 4), K1 and K2 at those shapes against
+   their plain versions with bounds, seed-iterations per second at N = 1,
+   2 and 4 in turns, peak memory and busy share
+   (chiprun_out/profile_train_many_dropout1.txt), train_many of it on a
+   synthetic split with its launches; then the ``--dropout 0.2`` model at
+   N=16 (its pool's pair path launches no kernel) trained by train_many
+   and resumed from its files;
+13. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
    matmul precision; ``grouptraj_torch.ops.precision``) against their
    plain versions in that mode at S=64/N=64/B=8, S=256/N=16/B=8,
    S=128/N=64/B=48, S=1,280/N=64/B=8 and R=4/S=128/N=64/B=48 (kernel_bf16_phase,
@@ -2602,6 +2614,228 @@ def _pool_calls():
         yield calls, first
 
 
+def _hold_pool_shapes(label, first, rng, n, smi):
+    """K1 and K2 at the shapes ``first`` holds (:func:`_pool_calls`' first
+    call of each, R = ``n``) against their plain versions, timed beside
+    their bounds -> {(kind, tag): timing}."""
+    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
+    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
+    timed = {}
+    for (kind, S_, B), args in sorted(first.items()):
+        tag = f"R{n}_S{S_}_N{args[0].shape[2]}_B{B}"
+        a, u, W2, b2, valid = args[:5]
+        if kind == "fwd":
+            err = check_kernel(f"{label} {tag}", a, u, W2, b2, valid,
+                               near_ties=True)
+            out_bytes = 2 * a[..., :1].numel() * B * 4
+            bound = pool_bound_ms(a, W2, valid, out_bytes)
+            ms = time_ms(lambda: pool_core_fwd(a, u, W2, b2, valid))
+            plain_ms = time_ms(lambda: pool_core(a, u, W2, b2, valid))
+        else:
+            err = check_bwd(f"{label} {tag}", rng, a, u, W2, b2, valid)
+            pooled, cnt, dpool = args[5:8]
+            bound = bwd_bound_ms(a, W2, valid, pooled, cnt)
+            ms = time_ms(lambda: pool_core_bwd(a, u, W2, b2, valid, pooled,
+                                               cnt, dpool))
+            plain_ms = time_ms(lambda: pool_core_bwd_plain(
+                a, u, W2, b2, valid, pooled, cnt, dpool))
+        timed[(kind, tag)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                  **bound)
+        print(f"{label} K{1 if kind == 'fwd' else 2} {tag} time: kernel_ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound)} "
+              f"kernel/bound={ms / bound['bound_ms']:.2f}; {smi}")
+    return timed
+
+
+def _sweep_rates(label, cfg, tcfg, base, data, idx, gen, gens, smi,
+                 profile_name):
+    """Seed-iterations per second of ``train_iterations_many`` over the
+    ``idx`` iterations at N = 1, 2 and all of ``base``'s states (stacked
+    from their first N, replica i drawing from ``gens[i]``) in turns
+    beside ``train_iterations`` of ``base[0]`` (train()'s step, drawing
+    from ``gen``), all on 'scan'; then the peak memory and a profile
+    (``chiprun_out/<profile_name>``) of one iteration at all N. -> the
+    rates by N ('train' for the single state)."""
+    import copy
+    import torch
+    from grouptraj_torch.train.steps import (
+        stack_states, train_iterations, train_iterations_many,
+        train_state_from_modules,
+    )
+    n_all, iters = len(base), len(idx)
+    S, N = idx.shape[2], data["valid"].shape[1]
+    ms_it = {}
+    for n in ("train", 1, 2, n_all, n_all, 2, 1, "train"):
+        if n == "train":
+            run = train_state_from_modules(copy.deepcopy(base[0].g),
+                                           copy.deepcopy(base[0].d), tcfg)
+            step = lambda ix: train_iterations(run, data, ix, cfg, tcfg, gen,
+                                               impl="scan")
+        else:
+            run = stack_states(base[:n], tcfg)
+            g = gens[:n]
+            step = lambda ix: train_iterations_many(run, data, ix, cfg, tcfg,
+                                                    g)
+        step(idx[:2])                                            # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(idx)
+        torch.cuda.synchronize()
+        ms_it.setdefault(n, []).append(
+            (time.perf_counter() - t0) * 1e3 / iters)
+        del run, step
+    one = statistics.mean(ms_it["train"])
+    rates = {n: (1 if n == "train" else n) * 1e3 / statistics.mean(v)
+             for n, v in ms_it.items()}
+    print(f"{label}: seed-iterations per second at S{S}_N{N} ('scan', "
+          f"{iters} iterations a run, the mean of two runs in "
+          f"turns): train() {rates['train']:.2f} it/s ({one:.1f} ms); "
+          + "; ".join(f"N={n} {rates[n]:.2f} ({statistics.mean(ms_it[n]):.1f}"
+                      f" ms an iteration)" for n in (1, 2, n_all))
+          + f"; N={n_all}/N=1 = {rates[n_all] / rates[1]:.2f}x; {smi}")
+    run = stack_states(base, tcfg)
+    train_iterations_many(run, data, idx[:1], cfg, tcfg, gens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_iterations_many(run, data, idx[:1], cfg, tcfg, gens)
+    torch.cuda.synchronize()
+    print(f"{label}: peak memory of one {n_all}-seed iteration "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_phase(lambda: train_iterations_many(run, data, idx[:1], cfg,
+                                                tcfg, gens),
+                  f"{n_all}-seed iteration S{S}_N{N}", profile_name,
+                  statistics.mean(ms_it[n_all]))
+    return rates
+
+
+def _train_many_runs(label, cfg, seeds, runs, per_iter, smi, max_peds=57,
+                     **sweep):
+    """``train_many`` of ``seeds`` on a synthetic ETH/UCY-format split (3
+    train files of 560 frames and a val file of 200, at most ``max_peds``
+    pedestrians at a time; batch 64, best_k 20, checkpoints named 'many',
+    the ``sweep`` fields of TrainConfig) for each (iterations, restore) of
+    ``runs`` in order, into one output directory, each with the counts at
+    0 just before and read just after: K2 exactly ``per_iter``'s count an
+    iteration, K1 at least its count (the metric sweeps add more), every
+    call at R = len(seeds); s<seed>/ files, finite histories, a resume's
+    restore_ts; the files hold each replica's generator state. -> the
+    first run's launches."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from grouptraj_torch.config import TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train import multi as MULTI
+
+    n = len(seeds)
+    k1, k2 = per_iter["pool_core_fwd"], per_iter["pool_core_bwd"]
+    tmp = tempfile.mkdtemp(prefix="grouptraj_many_")
+    saved_env = os.environ.get("GROUPTRAJ_DATA_DIR")
+    os.environ["GROUPTRAJ_DATA_DIR"] = tmp
+    try:
+        write_scene_files(os.path.join(tmp, "synth", "train"), n_files=3,
+                          frames=560, max_peds=max_peds, seed=0)
+        write_scene_files(os.path.join(tmp, "synth", "val"), n_files=1,
+                          frames=200, max_peds=max_peds, seed=1)
+        sweep = dict(dataset_name="synth", batch_size=64, best_k=20,
+                     num_epochs=0, seed=seeds[0],
+                     output_dir=os.path.join(tmp, "out"),
+                     checkpoint_name="many", **sweep)
+        launches, done = None, 0
+        for iters, restore in runs:
+            tc = TrainConfig(**sweep, num_iterations=iters,
+                             restore_from_checkpoint=restore)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with _pool_calls() as (seen, _):
+                ckpts = MULTI.train_many(cfg, tc, seeds, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = all_counts()
+            ran = iters - done
+            launches = launches or counts
+            rs = sorted({r for _, r, *_ in seen})
+            print(f"{label}: train_many of {n} seeds, {ran} iterations"
+                  f"{' (resumed)' if restore else ''}: launches "
+                  f"{json.dumps(counts)} at R {rs}; {ran * n / wall:.2f} "
+                  f"seed-iterations/s over the run ({wall:.2f} s wall, "
+                  f"sweeps and saves included); {smi}")
+            if (counts["pool_core_bwd"] != k2 * ran
+                    or counts["pool_core_fwd"] < k1 * ran
+                    or any(r != n for r in rs) or (k1 and not rs)):
+                fail(f"{label}: train_many launched {counts} at R {rs}; "
+                     f"expected K2 = {k2 * ran}, K1 >= {k1 * ran}, R = {n}")
+            for s in seeds:
+                ck = ckpts[s]
+                hist = ([v for h in ("G_losses", "D_losses", "metrics_val")
+                         for vals in ck[h].values() for v in vals]
+                        + ck["norm_g"] + ck["norm_d"])
+                if not hist or not all(math.isfinite(v) for v in hist):
+                    fail(f"{label}: seed {s}: a loss, norm or metric is not "
+                         f"finite")
+                if ck["counters"]["t"] != iters or ck["args"]["seed"] != s \
+                        or (restore and ck["restore_ts"] != [done]):
+                    fail(f"{label}: seed {s} ended at {ck['counters']} with "
+                         f"restore_ts {ck['restore_ts']}")
+                for suffix in ("_with_model.pt", "_no_model.pt"):
+                    if not os.path.isfile(os.path.join(
+                            tc.output_dir, f"s{s}", "many" + suffix)):
+                        fail(f"{label}: s{s}/many{suffix} was not written")
+            if not any(max(ckpts[s]["norm_d"]) > 0 for s in seeds):
+                fail(f"{label}: no replica's discriminator had a gradient")
+            done = iters
+        loaded = CK.load_checkpoint(os.path.join(tc.output_dir,
+                                                 f"s{seeds[0]}",
+                                                 "many_with_model.pt"))
+        if loaded.get(MULTI.RNG_KEY) is None:
+            fail(f"{label}: the checkpoint holds no generator state")
+        print(f"{label}: trained to t={done}; last val ade per seed "
+              + json.dumps({s: ckpts[s]["metrics_val"]["ade"][-1:]
+                            for s in seeds}))
+    finally:
+        shutil.rmtree(tmp)
+        if saved_env is None:
+            os.environ.pop("GROUPTRAJ_DATA_DIR", None)
+        else:
+            os.environ["GROUPTRAJ_DATA_DIR"] = saved_env
+    return launches
+
+
+def _replicas_report(label, what, seeds, out, st, refs, tcfg):
+    """Each replica of a sweep (``out``: its histories ``[N, iters]``,
+    ``st``: its StackedState) against its reference run ``refs[i]`` =
+    (histories ``[iters]``, {"g"|"d": {name: weight}}): losses and norms
+    within MANY_RTOL of each history's largest entry, weights within lr/10
+    (the inter-group attention vectors 2 lr an iteration, 4 lr)."""
+    lr = {"g": tcfg.g_learning_rate, "d": tcfg.d_learning_rate}
+    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0}
+    for i, (s, (hist, params)) in enumerate(zip(seeds, refs)):
+        for k, ref in hist.items():
+            d = (out[k][i] - ref).abs().max().item() / max(
+                ref.abs().max().item(), 1e-12)
+            worst["history"] = max(worst["history"], d)
+            if not d <= MANY_RTOL:
+                fail(f"{label}: seed {s} {k} {out[k][i].tolist()} against "
+                     f"{what}: {ref.tolist()}")
+        for part, stacked in (("g", st.g_params), ("d", st.d_params)):
+            for name, w in params[part].items():
+                d = (stacked[name][i] - w).abs().max().item()
+                key, tol = (("noisy", 2 * 2 * lr[part]) if _noisy(name)
+                            else ("weights", lr[part] / 10))
+                worst[key] = max(worst[key], d / lr[part])
+                if not d <= tol:
+                    fail(f"{label}: seed {s} {part}.{name} differs by "
+                         f"{d:.3e} from {what} (limit {tol:.1e})")
+    print(f"{label}: each replica against {what}: losses and norms worst "
+          f"{worst['history']:.2e} of the history's largest (limit "
+          f"{MANY_RTOL}); weights worst {worst['weights']:.2e} lr (limit "
+          f"0.1 lr), the inter-group attention vectors {worst['noisy']:.2e}"
+          f" lr (limit 4 lr)")
+
+
 def many_phase(rng, smi):
     """Multi-seed sweeps, ``train_many`` (the replicas' weights stacked on
     a seed axis, every step under torch.func.vmap, K1/K2 taking the seed
@@ -2627,21 +2861,11 @@ def many_phase(rng, smi):
         MANY_RESUME: s<seed>/ files, finite histories, the resume's
         restore_ts and generator states.
     Returns the launches of the run in (d)."""
-    import copy
-    import math
-    import shutil
-    import tempfile
     import torch
     from grouptraj_torch.config import ModelConfig, TrainConfig
-    from grouptraj_torch.data.synthetic import write_scene_files
-    from grouptraj_torch.ops.cuda_pool import pool_core_bwd, pool_core_fwd
-    from grouptraj_torch.ops.pooling import pool_core, pool_core_bwd_plain
-    from grouptraj_torch.train import checkpoint as CK
-    from grouptraj_torch.train import multi as MULTI
     from grouptraj_torch.train.device_data import synthetic_device_data
     from grouptraj_torch.train.steps import (
-        init_train_state, stack_states, train_iterations,
-        train_iterations_many, train_state_from_modules,
+        init_train_state, stack_states, train_iterations_many,
     )
 
     t_phase = time.perf_counter()
@@ -2681,180 +2905,32 @@ def many_phase(rng, smi):
             counts[k] for k in counts if k not in want):
         fail(f"many: a 4-seed iteration must launch {MANY_PER_ITER} (x2) "
              f"at R = {n4} and no LSTM kernel, got {counts} at R {rs}")
-    lr = {"g": f32.g_learning_rate, "d": f32.d_learning_rate}
-    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0}
-    for i, s in enumerate(seeds):
+    refs = []
+    for s in seeds:
         st1 = stack_states(states([s], f32), f32)
         out1 = train_iterations_many(st1, data, idx[:2], cfg, f32,
                                      gens([s]))
-        for k, ref in out1.items():
-            d = (out4[k][i] - ref[0]).abs().max().item() / max(
-                ref.abs().max().item(), 1e-12)
-            worst["history"] = max(worst["history"], d)
-            if not d <= MANY_RTOL:
-                fail(f"many: seed {s} {k} {out4[k][i].tolist()} against "
-                     f"its 1-seed sweep {ref[0].tolist()}")
-        for part, p4, p1 in (("g", st4.g_params, st1.g_params),
-                             ("d", st4.d_params, st1.d_params)):
-            for name, w in p1.items():
-                d = (p4[name][i] - w[0]).abs().max().item()
-                key, tol = (("noisy", 2 * 2 * lr[part]) if _noisy(name)
-                            else ("weights", lr[part] / 10))
-                worst[key] = max(worst[key], d / lr[part])
-                if not d <= tol:
-                    fail(f"many: seed {s} {part}.{name} differs by {d:.3e} "
-                         f"from its 1-seed sweep (limit {tol:.1e})")
+        refs.append(({k: v[0] for k, v in out1.items()},
+                     {part: {k: v[0] for k, v in p.items()} for part, p in
+                      (("g", st1.g_params), ("d", st1.d_params))}))
         del st1
-    print(f"many: each replica against a 1-seed sweep of its seed, 2 "
-          f"iterations: losses and norms worst {worst['history']:.2e} of "
-          f"the history's largest (limit {MANY_RTOL}); weights worst "
-          f"{worst['weights']:.2e} lr (limit 0.1 lr), the inter-group "
-          f"attention vectors {worst['noisy']:.2e} lr (limit 4 lr)")
+    _replicas_report("many", "a 1-seed sweep of its seed, 2 iterations",
+                     seeds, out4, st4, refs, f32)
 
     # (b) K1 and K2 at the R = 4 shapes of that iteration
-    timed = {}
-    for (kind, S_, B), args in sorted(first.items()):
-        tag = f"R{n4}_S{S_}_N{args[0].shape[2]}_B{B}"
-        a, u, W2, b2, valid = args[:5]
-        if kind == "fwd":
-            err = check_kernel(f"many {tag}", a, u, W2, b2, valid,
-                               near_ties=True)
-            out_bytes = 2 * a[..., :1].numel() * B * 4
-            bound = pool_bound_ms(a, W2, valid, out_bytes)
-            ms = time_ms(lambda: pool_core_fwd(a, u, W2, b2, valid))
-            plain_ms = time_ms(lambda: pool_core(a, u, W2, b2, valid))
-        else:
-            err = check_bwd(f"many {tag}", rng, a, u, W2, b2, valid)
-            pooled, cnt, dpool = args[5:8]
-            bound = bwd_bound_ms(a, W2, valid, pooled, cnt)
-            ms = time_ms(lambda: pool_core_bwd(a, u, W2, b2, valid, pooled,
-                                               cnt, dpool))
-            plain_ms = time_ms(lambda: pool_core_bwd_plain(
-                a, u, W2, b2, valid, pooled, cnt, dpool))
-        timed[(kind, tag)] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                  **bound)
-        print(f"many K{1 if kind == 'fwd' else 2} {tag} time: kernel_ms="
-              f"{ms:.4f} plain_ms={plain_ms:.4f} {_bound_text(bound)} "
-              f"kernel/bound={ms / bound['bound_ms']:.2f}; {smi}")
+    timed = _hold_pool_shapes("many", first, rng, n4, smi)
     del seen, first, st4, out4
 
     # (c) rates in turns, a profile and the peak memory of N = 4
-    base = states(seeds, tcfg)
-    ms_it = {}
-    for n in ("train", 1, 2, 4, 4, 2, 1, "train"):
-        if n == "train":
-            run = train_state_from_modules(copy.deepcopy(base[0].g),
-                                           copy.deepcopy(base[0].d), tcfg)
-            step = lambda ix: train_iterations(run, data, ix, cfg, tcfg, gen,
-                                               impl="scan")
-        else:
-            run = stack_states(base[:n], tcfg)
-            g = gens(seeds[:n])
-            step = lambda ix: train_iterations_many(run, data, ix, cfg, tcfg,
-                                                    g)
-        step(idx[:2])                                            # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(idx)
-        torch.cuda.synchronize()
-        ms_it.setdefault(n, []).append(
-            (time.perf_counter() - t0) * 1e3 / MANY_RATE_ITERS)
-        del run, step
-    one = statistics.mean(ms_it["train"])
-    rates = {n: (1 if n == "train" else n) * 1e3 / statistics.mean(v)
-             for n, v in ms_it.items()}
-    print(f"many: seed-iterations per second at S{S}_N64 ('scan', "
-          f"{MANY_RATE_ITERS} iterations a run, the mean of two runs in "
-          f"turns): train() {rates['train']:.2f} it/s ({one:.1f} ms); "
-          + "; ".join(f"N={n} {rates[n]:.2f} ({statistics.mean(ms_it[n]):.1f}"
-                      f" ms an iteration)" for n in (1, 2, 4))
-          + f"; N=4/N=1 = {rates[4] / rates[1]:.2f}x; {smi}")
-    run = stack_states(base, tcfg)
-    g = gens(seeds)
-    train_iterations_many(run, data, idx[:1], cfg, tcfg, g)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    train_iterations_many(run, data, idx[:1], cfg, tcfg, g)
-    torch.cuda.synchronize()
-    print(f"many: peak memory of one 4-seed iteration "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_phase(lambda: train_iterations_many(run, data, idx[:1], cfg,
-                                                tcfg, g),
-                  f"4-seed iteration S{S}_N64", "profile_train_many.txt",
-                  statistics.mean(ms_it[4]))
-    del run, base
+    rates = _sweep_rates("many", cfg, tcfg, states(seeds, tcfg), data, idx,
+                         gen, gens(seeds), smi, "profile_train_many.txt")
 
     # (d) train_many on a synthetic split, with a save and a resume
-    tmp = tempfile.mkdtemp(prefix="grouptraj_many_")
-    saved_env = os.environ.get("GROUPTRAJ_DATA_DIR")
-    os.environ["GROUPTRAJ_DATA_DIR"] = tmp
-    try:
-        write_scene_files(os.path.join(tmp, "synth", "train"), n_files=3,
-                          frames=560, max_peds=57, seed=0)
-        write_scene_files(os.path.join(tmp, "synth", "val"), n_files=1,
-                          frames=200, max_peds=57, seed=1)
-        sweep = dict(dataset_name="synth", batch_size=64, best_k=20,
-                     n_buckets=3, steps_per_dispatch=10, print_every=10,
-                     checkpoint_every=10, num_epochs=0, seed=seeds[0],
-                     output_dir=os.path.join(tmp, "out"),
-                     checkpoint_name="many")
-        launches = None
-        for iters, restore in ((MANY_ITERS, False), (MANY_RESUME, True)):
-            tc = TrainConfig(**sweep, num_iterations=iters,
-                             restore_from_checkpoint=restore)
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            with _pool_calls() as (seen, _):
-                ckpts = MULTI.train_many(cfg, tc, seeds, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = all_counts()
-            ran = iters - (MANY_ITERS if restore else 0)
-            launches = launches or counts
-            rs = sorted({r for _, r, *_ in seen})
-            print(f"many: train_many of {n4} seeds, {ran} iterations"
-                  f"{' (resumed)' if restore else ''}: launches "
-                  f"{json.dumps(counts)} at R {rs}; {ran * n4 / wall:.2f} "
-                  f"seed-iterations/s over the run ({wall:.2f} s wall, "
-                  f"sweeps and saves included); {smi}")
-            if (counts["pool_core_bwd"] != 3 * ran
-                    or counts["pool_core_fwd"] < 4 * ran or rs != [n4]):
-                fail(f"many: train_many launched {counts} at R {rs}; "
-                     f"expected K2 = {3 * ran}, K1 >= {4 * ran}, R = {n4}")
-            for s in seeds:
-                ck = ckpts[s]
-                hist = ([v for h in ("G_losses", "D_losses", "metrics_val")
-                         for vals in ck[h].values() for v in vals]
-                        + ck["norm_g"] + ck["norm_d"])
-                if not hist or not all(math.isfinite(v) for v in hist):
-                    fail(f"many: seed {s}: a loss, norm or metric is not "
-                         f"finite")
-                if ck["counters"]["t"] != iters or ck["args"]["seed"] != s \
-                        or (restore and ck["restore_ts"] != [MANY_ITERS]):
-                    fail(f"many: seed {s} ended at {ck['counters']} with "
-                         f"restore_ts {ck['restore_ts']}")
-                for suffix in ("_with_model.pt", "_no_model.pt"):
-                    if not os.path.isfile(os.path.join(
-                            tc.output_dir, f"s{s}", "many" + suffix)):
-                        fail(f"many: s{s}/many{suffix} was not written")
-            if not any(max(ckpts[s]["norm_d"]) > 0 for s in seeds):
-                fail("many: no replica's discriminator had a gradient")
-        loaded = CK.load_checkpoint(os.path.join(tc.output_dir,
-                                                 f"s{seeds[0]}",
-                                                 "many_with_model.pt"))
-        if loaded.get(MULTI.RNG_KEY) is None:
-            fail("many: the checkpoint holds no generator state")
-        print(f"many: resumed to t={MANY_RESUME}; last val ade per seed "
-              + json.dumps({s: ckpts[s]["metrics_val"]["ade"][-1:]
-                            for s in seeds})
-              + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
-    finally:
-        shutil.rmtree(tmp)
-        if saved_env is None:
-            os.environ.pop("GROUPTRAJ_DATA_DIR", None)
-        else:
-            os.environ["GROUPTRAJ_DATA_DIR"] = saved_env
+    launches = _train_many_runs(
+        "many", cfg, seeds, ((MANY_ITERS, False), (MANY_RESUME, True)),
+        MANY_PER_ITER, smi, n_buckets=3, steps_per_dispatch=10,
+        print_every=10, checkpoint_every=10)
+    print(f"many: the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches, timed, rates
 
 
@@ -2989,7 +3065,6 @@ def options_phase(batches, noises, smi):
     import torch
     from grouptraj_torch.config import ModelConfig, TrainConfig
     from grouptraj_torch.serve import Predictor
-    from grouptraj_torch.train import cli
     from grouptraj_torch.train.device_data import (
         gather_batch, synthetic_device_data,
     )
@@ -3001,11 +3076,9 @@ def options_phase(batches, noises, smi):
     tcfg = TrainConfig()
     f32 = dataclasses.replace(tcfg, bf16_nograd=False)
     S = tcfg.batch_size
-    from_flags = lambda *flags: cli.configs_from_args(
-        cli.build_parser().parse_args(list(flags)))[0]
-    configs = {"batch_norm": from_flags("--batch_norm", "1"),
-               "dropout1": from_flags("--dropout1", "0.2"),
-               "dropout": from_flags("--dropout", "0.2"),
+    configs = {"batch_norm": _cli_config("--batch_norm", "1"),
+               "dropout1": _cli_config("--dropout1", "0.2"),
+               "dropout": _cli_config("--dropout", "0.2"),
                "leakyrelu": dataclasses.replace(ModelConfig(),
                                                 activation="leakyrelu")}
     widths = {"dropout": 16}
@@ -3170,6 +3243,159 @@ def _options_lstm_checks(rows, smi):
     return folded
 
 
+# ------------------------------------------------------- dropout sweeps
+
+MD_RATE_ITERS = 4            # timed iterations a run of the dropout1 rates
+MD_ITERS = 4                 # train_many of the dropout1 model
+MD_DROPOUT_RUNS = ((4, False), (6, True))  # the dropout model's, resumed
+MD_DROPOUT_N = 16            # the dropout model's width (options_phase's)
+
+
+def _cli_config(*flags):
+    """The ModelConfig ``python -m grouptraj_torch.train.cli`` makes from
+    ``flags``."""
+    from grouptraj_torch.train import cli
+    return cli.configs_from_args(cli.build_parser().parse_args(list(flags)))[0]
+
+
+def many_dropout_phase(rng, smi):
+    """Dropout in multi-seed sweeps: ``train_many`` of the gat preset at
+    full width from the training CLI's ``--dropout1 0.2`` (batch 64,
+    best_k 20, S=64/N=64), the seeds MANY_SEEDS. Each replica draws its
+    noise, labels and keep-masks from its own generator in train()'s
+    order (``steps.replica_draws``); the g-step's per-sample forward is a
+    vmap over the 20 samples nested in the seed vmap.
+
+    (a) one 4-seed iteration of train_iterations_many (float32 no-grad
+        legs, TF32 off) against each seed's single-seed step,
+        train_iterations from the same init with a generator seeded as the
+        replica's: losses, norms and weights as many_phase holds them
+        (:func:`_replicas_report`), and each replica's generator left
+        where its single run leaves it (the same draws, keep-masks
+        included, in the same order); K1 x4 and K2 x3, all at R = 4, and
+        no LSTM kernel (the route is 'scan');
+    (b) K1 and K2 at those R = 4 shapes against their plain versions,
+        timed beside their bounds;
+    (c) seed-iterations per second at N = 1, 2 and 4 in turns beside
+        train()'s step, the peak memory and the busy share of a 4-seed
+        iteration (chiprun_out/profile_train_many_dropout1.txt);
+    (d) train_many of the dropout1 model on a synthetic split for MD_ITERS
+        iterations with its launches (K2 exactly 3 an iteration, K1 at
+        least 4, at R = 4);
+    (e) the ``--dropout 0.2`` model at N = MD_DROPOUT_N (the width
+        options_phase gives it: the pool's pair path holds [4, 20, 64, N,
+        N, 512] slabs under the two vmaps): one 4-seed iteration launches
+        no pool kernel (the pair path, as in train()), then train_many for
+        4 iterations, resumed from its files to 6 (scenes of at most 16
+        pedestrians, one bucket).
+    -> (launches of the runs in (d) and (e), K1/K2 timings at R = 4)."""
+    import torch
+    from grouptraj_torch.config import TrainConfig
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import (
+        init_train_state, stack_states, train_iterations,
+        train_iterations_many,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = _cli_config("--dropout1", "0.2")
+    tcfg = TrainConfig()
+    f32 = dataclasses.replace(tcfg, bf16_nograd=False)
+    S, seeds = tcfg.batch_size, list(MANY_SEEDS)
+    n4 = len(seeds)
+    data = synthetic_device_data(256, 64, seed=3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, 256, (MD_RATE_ITERS, 2, S), generator=gen,
+                        device="cuda")
+
+    def states(cfg, seeds, tc):
+        return [init_train_state(cfg, tc, device="cuda", generator=torch.
+                                 Generator(device="cuda").manual_seed(s))
+                for s in seeds]
+
+    def gens(seeds):
+        return [torch.Generator(device="cuda").manual_seed(1000 + s)
+                for s in seeds]
+
+    # (a) one 4-seed iteration against single-seed steps
+    st4, g4 = stack_states(states(cfg, seeds, f32), f32), gens(seeds)
+    torch.cuda.synchronize()
+    reset_counts()
+    with _pool_calls() as (seen, first):
+        out4 = train_iterations_many(st4, data, idx[:1], cfg, f32, g4)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    rs = sorted({r for _, r, *_ in seen})
+    print(f"many dropout1: 4-seed iteration (float32 no-grad legs): "
+          f"launches {json.dumps(counts)}, replica axis R {rs}, shapes "
+          f"{sorted(set(seen))}")
+    if {k: counts[k] for k in MANY_PER_ITER} != MANY_PER_ITER \
+            or rs != [n4] or any(counts[k] for k in counts
+                                 if k not in MANY_PER_ITER):
+        fail(f"many dropout1: a 4-seed iteration must launch "
+             f"{MANY_PER_ITER} at R = {n4} and no LSTM kernel, got {counts} "
+             f"at R {rs}")
+    refs = []
+    for i, s in enumerate(seeds):
+        one, g1 = states(cfg, [s], f32)[0], gens([s])[0]
+        hist = train_iterations(one, data, idx[:1], cfg, f32, g1,
+                                impl="scan")
+        if not torch.equal(g1.get_state(), g4[i].get_state()):
+            fail(f"many dropout1: seed {s}'s generator ended elsewhere than "
+                 f"its single run's: the replica drew other draws")
+        refs.append(({k: v for k, v in hist.items()},
+                     {"g": dict(one.g.named_parameters()),
+                      "d": dict(one.d.named_parameters())}))
+    _replicas_report("many dropout1", "its seed's single-seed step, one "
+                     "iteration on the same draws", seeds, out4, st4, refs,
+                     f32)
+    del refs, one
+
+    # (b) K1 and K2 at the R = 4 shapes of that iteration
+    timed = _hold_pool_shapes("many dropout1", first, rng, n4, smi)
+    del seen, first, st4, out4
+
+    # (c) rates in turns, a profile and the peak memory of N = 4
+    rates = _sweep_rates("many dropout1", cfg, tcfg,
+                         states(cfg, seeds, tcfg), data, idx, gen,
+                         gens(seeds), smi, "profile_train_many_dropout1.txt")
+
+    # (d) train_many of the dropout1 model
+    launches = {"train_many_dropout1": _train_many_runs(
+        "many dropout1", cfg, seeds, ((MD_ITERS, False),), MANY_PER_ITER,
+        smi, n_buckets=3, steps_per_dispatch=2, print_every=2,
+        checkpoint_every=MD_ITERS)}
+
+    # (e) the dropout model at N = 16: the pair path, then train_many
+    cfg = _cli_config("--dropout", "0.2")
+    small = synthetic_device_data(256, MD_DROPOUT_N, seed=4, device="cuda")
+    st4 = stack_states(states(cfg, seeds, tcfg), tcfg)
+    train_iterations_many(st4, small, idx[:1], cfg, tcfg, gens(seeds))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_iterations_many(st4, small, idx[1:2], cfg, tcfg, gens(seeds))
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t0) * 1e3
+    counts = all_counts()
+    print(f"many dropout: 4-seed iteration at S{S}_N{MD_DROPOUT_N}: "
+          f"launches {json.dumps(counts)}, {it_ms:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if any(counts.values()) or not all(bool(torch.isfinite(v).all())
+                                       for v in out.values()):
+        fail(f"many dropout: the pool's pair path launches no kernel and "
+             f"the losses are finite; got {counts}")
+    del st4, out
+    launches["train_many_dropout"] = _train_many_runs(
+        "many dropout", cfg, seeds, MD_DROPOUT_RUNS,
+        {"pool_core_fwd": 0, "pool_core_bwd": 0}, smi,
+        max_peds=MD_DROPOUT_N, n_buckets=1, steps_per_dispatch=2,
+        print_every=2, checkpoint_every=2)
+    print(f"many dropout phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, timed, rates
+
+
 def main():
     import numpy as np
     import torch
@@ -3235,6 +3461,7 @@ def main():
     many_launches, many_timed, _ = many_phase(rng, smi.splitlines()[0])
     option_launches, option_folded = options_phase(
         batches, noises, smi.splitlines()[0])
+    md_launches, md_timed, _ = many_dropout_phase(rng, smi.splitlines()[0])
     bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
@@ -3248,7 +3475,10 @@ def main():
     # iterations (presets_phase), and train_many's sweep of four seeds
     # (many_phase, K1/K2 at R = 4), and the MLP options' serving calls
     # and 'fused' and 'pallas' iterations (options_phase: K3/K4 at 20·S·N
-    # rows in the dropout1 model's per-sample g-step). No
+    # rows in the dropout1 model's per-sample g-step), and train_many of
+    # the dropout1 model (K1/K2 at R = 4 under the nested vmap) and of the
+    # dropout model (the pair pool: K1 in its metric sweeps only)
+    # (many_dropout_phase). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -3270,10 +3500,13 @@ def main():
              "loop_fused": loop_launches["fused"],
              "loop_pallas": loop_launches["pallas"], **preset_launches,
              "train_many": many_launches,
-             **{f"options_{k}": v for k, v in option_launches.items()}}
-    # K1/K2 at the R = 4 shapes of a 4-seed training iteration
-    many_shapes = {kind: {tag: t for (k_, tag), t in many_timed.items()
-                          if k_ == kind} for kind in ("fwd", "bwd")}
+             **{f"options_{k}": v for k, v in option_launches.items()},
+             **md_launches}
+    # K1/K2 at the R = 4 shapes of a 4-seed training iteration, without
+    # dropout and with dropout1
+    many_shapes, md_shapes = (
+        {kind: {tag: t for (k_, tag), t in t_.items() if k_ == kind}
+         for kind in ("fwd", "bwd")} for t_ in (many_timed, md_timed))
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               by_paths=paths, **more):
@@ -3301,6 +3534,7 @@ def main():
               "grouptraj/ops/pallas_pool.py:160", max_err, "S64_N64_B8",
               timed["S64_N64_B8"],
               shapes_train_many=many_shapes["fwd"],
+              shapes_train_many_dropout1=md_shapes["fwd"],
               **tc_more(timed["S64_N64_B8"], timed,
                           "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
@@ -3308,6 +3542,7 @@ def main():
               bwd_timed["S128_N64_B48"],
               phases=bwd_timed["S128_N64_B48"]["phases"],
               shapes_train_many=many_shapes["bwd"],
+              shapes_train_many_dropout1=md_shapes["bwd"],
               **tc_more(bwd_timed["S128_N64_B48"], bwd_timed,
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",

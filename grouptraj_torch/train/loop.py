@@ -163,7 +163,7 @@ def _check_devices(tcfg: TrainConfig, dev: torch.device) -> None:
     if n > 1:
         raise NotImplementedError(
             f"num_devices={n}: data-parallel training is not ported yet "
-            "(ROADMAP.md queue 1 item 10); the port trains on one device")
+            "(ROADMAP.md queue 1 item 1); the port trains on one device")
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig,

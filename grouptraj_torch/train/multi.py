@@ -14,12 +14,14 @@ no vmap rule).
 
 Semantics against N runs of ``train()``: replica i's initial weights and
 draws are those of ``train()`` with ``seed = seeds[i]`` (one
-``torch.Generator`` per replica, drawn outside the vmap in a step's order);
-all replicas share one batch schedule, seeded by ``tcfg.seed``. The clip
-and Adam act per replica. Each seed writes the standard checkpoint files to
-``<output_dir>/s<seed>/`` in the JAX package's schema, with ``args["seed"]``
-and ``args["sweep_seeds"]``, and its generator's state under
-:data:`RNG_KEY`.
+``torch.Generator`` per replica, drawn outside the vmap in a step's order,
+dropout's keep-masks included: ``steps.replica_draws``); all replicas share
+one batch schedule, seeded by ``tcfg.seed``. With dropout the g-step's
+per-sample forward is a vmap over the samples nested in the seed vmap.
+The clip and Adam act per replica. Each seed writes the standard
+checkpoint files to ``<output_dir>/s<seed>/`` in the JAX package's schema,
+with ``args["seed"]`` and ``args["sweep_seeds"]``, and its generator's
+state under :data:`RNG_KEY`.
 
 Resume (``restore_from_checkpoint`` or ``checkpoint_start_from=<sweep
 dir>``) restores the stacked states, counters and histories, each
@@ -54,8 +56,7 @@ from grouptraj_torch.train.loop import (
     make_dispatch_source, make_train_eval_subset,
 )
 from grouptraj_torch.train.steps import (
-    check_accuracy_sweep_many, check_sweepable, init_train_state,
-    stack_states,
+    check_accuracy_sweep_many, init_train_state, stack_states,
     summarize_check_accuracy, train_iterations_many, unstack_state,
 )
 from grouptraj_torch.utils import resolve_device
@@ -112,7 +113,6 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
         raise ValueError(f"{len(draws)} Draws for {len(seeds)} seeds")
     dev = resolve_device(device)
     _check_devices(tcfg, dev)
-    check_sweepable(cfg)
     impl = select_impl(cfg, tcfg)
     if impl != "scan":
         logger.info("train_many: lstm_impl %s -> scan (vmap-safe)", impl)

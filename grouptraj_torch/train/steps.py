@@ -391,6 +391,65 @@ def sample_mask_shapes(cfg: ModelConfig, S: int, N: int
     return tuple(rec.asked)
 
 
+def _meta_batch(cfg: ModelConfig, S: int, N: int) -> Batch:
+    """A training batch of ``[S, N]`` scenes on the ``meta`` device."""
+    To, Tp = cfg.obs_len, cfg.pred_len
+    with torch.device("meta"):
+        obs, pred = torch.zeros(S, N, To, 2), torch.zeros(S, N, Tp, 2)
+        return dict(obs=obs, obs_rel=obs, pred=pred, pred_rel=pred,
+                    group=torch.zeros(S, N), valid=torch.ones(S, N))
+
+
+@functools.lru_cache(maxsize=64)
+def d_mask_shapes(cfg: ModelConfig, S: int, N: int
+                  ) -> Tuple[Tuple[Tuple[int, ...], float], ...]:
+    """The (shape, keep probability) of every keep-mask one d-step of
+    ``cfg`` asks for on ``[S, N]`` scenes, in order: the generator leg's,
+    then D's calls (two with batch_norm, fake then real; else one stacked
+    call). A ``meta``-device dry run of :func:`d_loss`."""
+    with torch.device("meta"):
+        g, d = TrajectoryGenerator(cfg), TrajectoryDiscriminator(cfg)
+        z = (torch.zeros(S, N, cfg.noise_first_dim)
+             if cfg.noise_first_dim else None)
+    rec = ShapeRecorder()
+    with torch.no_grad():
+        d_loss(g, d, _meta_batch(cfg, S, N), cfg,
+               TrainConfig(bf16_nograd=False), z, 1.0, "scan", rec)
+    return tuple(rec.asked)
+
+
+@functools.lru_cache(maxsize=64)
+def disc_mask_shapes(cfg: ModelConfig, S: int, N: int
+                     ) -> Tuple[Tuple[Tuple[int, ...], float], ...]:
+    """The (shape, keep) of every keep-mask of one training discriminator
+    call on ``[S, N]`` scenes (the g-step's), in order; a ``meta`` dry
+    run."""
+    with torch.device("meta"):
+        d = TrajectoryDiscriminator(cfg)
+    b = _meta_batch(cfg, S, N)
+    traj = torch.cat([b["obs"], b["pred"]], dim=2)
+    rec = ShapeRecorder()
+    with torch.no_grad(), _mode(True, d):
+        d(traj, traj, b["valid"], "scan", rec)
+    return tuple(rec.asked)
+
+
+def draw_masks(shapes: Sequence[Tuple[Tuple[int, ...], float]],
+               generator: Optional[torch.Generator], device,
+               masks: Optional[Sequence] = None) -> List[torch.Tensor]:
+    """Boolean keep-masks at ``shapes`` ((shape, keep) pairs in a forward's
+    order): drawn from ``generator`` mask by mask, as that forward's
+    :class:`DrawnMasks` would draw them, or the injected ``masks`` checked
+    against the shapes."""
+    if masks is not None:
+        masks = list(masks)
+        if len(masks) != len(shapes):
+            raise ValueError(f"{len(masks)} masks injected, the forward "
+                             f"asks for {len(shapes)}")
+    src = DrawnMasks(generator) if masks is None else InjectedMasks(masks)
+    return [src.keep(shape, keep, device) for shape, keep in shapes]
+
+
 def stacked_sample_masks(cfg: ModelConfig, K: int, S: int, N: int,
                          generator: Optional[torch.Generator], device,
                          sample_masks: Optional[Sequence] = None
@@ -811,8 +870,9 @@ def unstack_state(st: StackedState, i: int, tcfg: TrainConfig,
 def replica_map(st: StackedState, fn: Callable, *args) -> object:
     """``fn(g, d, *args)`` for every replica at once: ``torch.func.vmap``
     over the seed axis of the weights and of every tensor in ``args``
-    (each ``[N, ...]``); None and non-tensor arguments are shared. ``fn``
-    must draw nothing."""
+    (each ``[N, ...]``), and of every tensor of a list argument (a list of
+    keep-masks, each ``[N, ...]``); None and other arguments are shared.
+    ``fn`` must draw nothing."""
     root = _Replica(st.g, st.d)
 
     def one(gp, dp, *a):
@@ -820,7 +880,8 @@ def replica_map(st: StackedState, fn: Callable, *args) -> object:
                   **{"d." + k: v for k, v in dp.items()}}
         return torch.func.functional_call(root, params, (fn, *a))
 
-    dims = tuple(0 if isinstance(a, torch.Tensor) else None for a in args)
+    dims = tuple(0 if isinstance(a, torch.Tensor)
+                 or (isinstance(a, list) and a) else None for a in args)
     return torch.func.vmap(one, in_dims=(0, 0, *dims))(
         st.g_params, st.d_params, *args)
 
@@ -840,26 +901,45 @@ def _apply_many(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
 
 
 def _stack_draws(per_seed: Sequence[dict], device) -> dict:
-    """One draw dict per seed -> one dict of ``[N, ...]`` float32
-    tensors on ``device`` (None stays None)."""
+    """One draw dict per seed -> one dict of ``[N, ...]`` tensors on
+    ``device``: noise and labels as float32, a list of keep-masks as a list
+    of boolean ``[N, ...]`` masks (None stays None)."""
     out = {}
     for k in per_seed[0]:
         vals = [d[k] for d in per_seed]
-        out[k] = None if vals[0] is None else torch.stack([
-            torch.as_tensor(v, dtype=torch.float32, device=device)
-            for v in vals])
+        if vals[0] is None:
+            out[k] = None
+        elif isinstance(vals[0], (list, tuple)):
+            if len({len(v) for v in vals}) != 1:
+                raise ValueError(f"{k}: the seeds were given different "
+                                 "numbers of masks")
+            out[k] = [torch.stack([as_mask(v[i], device) for v in vals])
+                      for i in range(len(vals[0]))]
+        else:
+            out[k] = torch.stack([
+                torch.as_tensor(v, dtype=torch.float32, device=device)
+                for v in vals])
     return out
+
+
+def _injected(masks: Optional[List[torch.Tensor]]) -> Optional[KeepMasks]:
+    return None if masks is None else InjectedMasks(masks)
 
 
 def d_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig, noise: Optional[torch.Tensor],
-                label: torch.Tensor, impl: str) -> Dict[str, torch.Tensor]:
+                label: torch.Tensor, impl: str,
+                masks: Optional[List[torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """:func:`d_step` for every replica on one shared batch: ``noise``
-    ``[N, S, N, nd]`` (or None) and ``label`` ``[N]`` are the replicas'
-    draws. The forward runs under vmap; the gradient of the sum of the
-    replicas' losses is each replica's own (they share no parameter)."""
-    loss = replica_map(st, lambda g, d, z, y: d_loss(
-        g, d, batch, cfg, tcfg, z, y, impl), noise, label)
+    ``[N, S, N, nd]`` (or None), ``label`` ``[N]`` and, with dropout,
+    ``masks`` (each keep-mask of :func:`d_mask_shapes` stacked ``[N, ...]``)
+    are the replicas' draws. The forward runs under vmap; the gradient of
+    the sum of the replicas' losses is each replica's own (they share no
+    parameter)."""
+    loss = replica_map(st, lambda g, d, z, y, ms: d_loss(
+        g, d, batch, cfg, tcfg, z, y, impl, _injected(ms)), noise, label,
+        masks)
     params = list(st.d_params.values())
     grads = torch.autograd.grad(loss.sum(), params)
     loss = loss.detach()
@@ -870,11 +950,18 @@ def d_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
 
 def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
                 tcfg: TrainConfig, noises: Optional[torch.Tensor],
-                label: torch.Tensor, impl: str) -> Dict[str, torch.Tensor]:
+                label: torch.Tensor, impl: str,
+                sample_masks: Optional[List[torch.Tensor]] = None,
+                d_masks: Optional[List[torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """:func:`g_step` for every replica on one shared batch (``noises``
-    ``[N, best_k, S, N, nd]``, ``label`` ``[N]``), the EMA per replica."""
-    variety, adv, total = replica_map(st, lambda g, d, z, y: g_loss(
-        g, d, batch, cfg, tcfg, z, y, impl), noises, label)
+    ``[N, best_k, S, N, nd]``, ``label`` ``[N]``; with dropout the
+    per-sample keep-masks ``[N, best_k, ...]`` and D's ``[N, ...]``), the
+    EMA per replica. With dropout each replica's per-sample forward is a
+    vmap over the samples nested in the seed vmap."""
+    variety, adv, total = replica_map(st, lambda g, d, z, y, sm, dm: g_loss(
+        g, d, batch, cfg, tcfg, z, y, impl, sm, _injected(dm)), noises,
+        label, sample_masks, d_masks)
     params = list(st.g_params.values())
     grads = torch.autograd.grad(total.sum(), params)
     losses = {"G_l2_loss_rel": variety.detach(),
@@ -890,15 +977,30 @@ def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
     return losses
 
 
-def check_sweepable(cfg: ModelConfig) -> None:
-    """A multi-seed sweep runs every option but dropout: its per-sample
-    forward would be a vmap nested in the seed vmap, with each seed's
-    keep-masks drawn outside both."""
+def replica_draws(kind: str, cfg: ModelConfig, tcfg: TrainConfig, S: int,
+                  N: int, generator: Optional[torch.Generator], device,
+                  **injected) -> dict:
+    """One replica's draws for a d-step (``kind`` ``'d'``) or a g-step
+    (``'g'``), in the order :func:`d_step` / :func:`g_step` take them from
+    ``generator``: the noise, the label, then with dropout the keep-masks
+    (the d-step's generator leg and D's; the g-step's per-sample masks,
+    then D's). ``injected`` holds :func:`train_iterations`' per-step dict;
+    an injected value draws nothing."""
+    masks = {k: injected.pop(k, None)
+             for k in ("masks", "sample_masks", "d_masks")}
+    if kind == "d":
+        out = d_draws(cfg, S, N, generator, device, **injected)
+        if _dropout(cfg):
+            out["masks"] = draw_masks(d_mask_shapes(cfg, S, N), generator,
+                                      device, masks["masks"])
+        return out
+    out = g_draws(cfg, tcfg, S, N, generator, device, **injected)
     if _dropout(cfg):
-        raise NotImplementedError(
-            "dropout (dropout or dropout1) in a multi-seed sweep is not "
-            "ported yet (ROADMAP.md queue 1): train each seed with "
-            "train() meanwhile")
+        out["sample_masks"] = stacked_sample_masks(
+            cfg, tcfg.best_k, S, N, generator, device, masks["sample_masks"])
+        out["d_masks"] = draw_masks(disc_mask_shapes(cfg, S, N), generator,
+                                    device, masks["d_masks"])
+    return out
 
 
 def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
@@ -909,12 +1011,11 @@ def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
                           impl: str = "scan") -> Dict[str, torch.Tensor]:
     """:func:`train_iterations` for every replica on one shared index
     schedule ``idx`` ``[iterations, d_steps + g_steps, S]``. Replica i
-    draws from ``generators[i]`` in a step's order, or takes
-    ``draws[i][it]`` (the per-iteration dicts of :func:`train_iterations`).
-    Returns every loss and norm stacked ``[N, iterations]``. With
-    batch_norm the d-step scores fake and real in two calls, as
-    :func:`d_step` does; dropout raises (:func:`check_sweepable`)."""
-    check_sweepable(cfg)
+    draws from ``generators[i]`` in a step's order
+    (:func:`replica_draws`), or takes ``draws[i][it]`` (the per-iteration
+    dicts of :func:`train_iterations`, keep-masks included). Returns every
+    loss and norm stacked ``[N, iterations]``. With batch_norm the d-step
+    scores fake and real in two calls, as :func:`d_step` does."""
     dev = data["valid"].device
     history: List[Dict[str, torch.Tensor]] = []
     for it, bidx in enumerate(idx):
@@ -924,12 +1025,10 @@ def train_iterations_many(st: StackedState, data: Dict[str, torch.Tensor],
             b = gather_batch(data, bidx[j], cfg.obs_len)
             S, N = b["valid"].shape
             j_kind = j if kind == "d" else j - tcfg.d_steps
-            per_seed = []
-            for i, gen in enumerate(generators):
-                kw = draws[i][it][kind][j_kind] if draws is not None else {}
-                per_seed.append(
-                    d_draws(cfg, S, N, gen, dev, **kw) if kind == "d"
-                    else g_draws(cfg, tcfg, S, N, gen, dev, **kw))
+            per_seed = [replica_draws(
+                kind, cfg, tcfg, S, N, gen, dev,
+                **(draws[i][it][kind][j_kind] if draws is not None else {}))
+                for i, gen in enumerate(generators)]
             step = d_step_many if kind == "d" else g_step_many
             losses.update(step(st, b, cfg, tcfg, impl=impl,
                                **_stack_draws(per_seed, dev)))

@@ -477,15 +477,27 @@ def test_batch_norm_sweep_steps_match_single_steps():
     "dropout", "cli"])
 def test_refusals_and_cli(case, data_root, tmp_path):
     if case == "dropout":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            MULTI.train_many(dataclasses.replace(CFG, dropout1=0.1),
-                             _small(str(tmp_path)), SEEDS, device="cpu")
+        # dropout runs in a sweep: two iterations of a dropout1 model
+        out = str(tmp_path / "dropout")
+        got = MULTI.train_many(dataclasses.replace(CFG, dropout1=0.1),
+                               _small(out, num_iterations=2), SEEDS,
+                               device="cpu")
+        for s in SEEDS:
+            ck = got[s]
+            assert ck["counters"]["t"] == 2 and len(ck["norm_g"]) == 2
+            for hist in ("G_losses", "D_losses"):
+                assert ck[hist] and all(
+                    np.isfinite(v).all() and len(v) == len(ck["losses_ts"])
+                    for v in ck[hist].values())
+            assert np.isfinite(ck["norm_d"]).all()
+            assert os.path.isfile(os.path.join(out, f"s{s}",
+                                               "ck_with_model.pt"))
     elif case == "duplicate":
         with pytest.raises(ValueError, match="duplicate"):
             MULTI.train_many(CFG, _small(str(tmp_path)), [5, 5],
                              device="cpu")
     elif case == "devices":
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match=r"queue 1 item 1\)"):
             MULTI.train_many(CFG, _small(str(tmp_path), num_devices=2),
                              SEEDS, device="cpu")
     elif case == "cli":
