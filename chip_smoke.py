@@ -138,7 +138,18 @@ Phases, each of which fails the run on any error:
    synthetic split with its launches; then the ``--dropout 0.2`` model at
    N=16 (its pool's pair path launches no kernel) trained by train_many
    and resumed from its files;
-13. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
+13. dp: data parallelism over scenes (dp_phase) on the one card, two gloo
+   ranks on cuda:0 spawned by grouptraj_torch.parallel.data_parallel
+   (NCCL refuses two ranks on one device): the gat preset at full width,
+   batch 64 (32 scenes a rank), on 'scan' and 'fused', each rank's
+   iterations against one process on the same draws (K1 x4 and K2 x3 an
+   iteration on each rank), ms an iteration per rank beside the
+   one-process step, the all-reduce's bytes and ms (one card, gloo through
+   the host: not a multi-card speed); K1 and K2 at a rank's S=32 shapes
+   against their plain versions; train() of 20 iterations on the two ranks
+   with a checkpoint rank 0 alone writes and that reloads; one iteration
+   on the nccl backend at world size 1;
+14. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
    matmul precision; ``grouptraj_torch.ops.precision``) against their
    plain versions in that mode at S=64/N=64/B=8, S=256/N=16/B=8,
    S=128/N=64/B=48, S=1,280/N=64/B=8 and R=4/S=128/N=64/B=48 (kernel_bf16_phase,
@@ -3396,6 +3407,267 @@ def many_dropout_phase(rng, smi):
     return launches, timed, rates
 
 
+# ------------------------------------------------------- data parallelism
+
+DP_WORLD = 2                 # gloo ranks, both on cuda:0
+DP_ITERS = 2                 # timed iterations a route, after one warm-up
+DP_LOOP_ITERS = 20           # train() on the ranks, a checkpoint at the end
+DP_RTOL = MANY_RTOL          # a rank against one process, TF32 off
+# launches a rank takes an iteration, each on its S = 64 / 2 scenes
+DP_PER_ITER = MANY_PER_ITER
+
+
+def _dp_report(label, ranks, one, tcfg):
+    """Each rank's run (:func:`grouptraj_torch.parallel.data_parallel.
+    run_iterations`) against the one-process run: losses and norms within
+    DP_RTOL of each history's largest entry, weights within lr/10 (the
+    inter-group attention vectors, whose gradients are rounding noise, 4
+    lr), the generator left in the same state (the same draws)."""
+    import torch
+    lr = {"g": tcfg.g_learning_rate, "d": tcfg.d_learning_rate}
+    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0}
+    for r, got in enumerate(ranks):
+        for k, ref in one["history"].items():
+            d = (got["history"][k] - ref).abs().max().item() / max(
+                ref.abs().max().item(), 1e-12)
+            worst["history"] = max(worst["history"], d)
+            if not d <= DP_RTOL:
+                fail(f"{label}: rank {r} {k} {got['history'][k].tolist()} "
+                     f"against one process {ref.tolist()}")
+        for part in ("g", "d"):
+            for name, w in one[part].items():
+                d = (got[part][name] - w).abs().max().item()
+                key, tol = (("noisy", 4 * lr[part]) if _noisy(name)
+                            else ("weights", lr[part] / 10))
+                worst[key] = max(worst[key], d / lr[part])
+                if not d <= tol:
+                    fail(f"{label}: rank {r} {part}.{name} differs by "
+                         f"{d:.3e} from one process (limit {tol:.1e})")
+        if not torch.equal(got["generator"], one["generator"]):
+            fail(f"{label}: rank {r}'s generator ended elsewhere than one "
+                 f"process's: it drew other draws")
+    print(f"{label}: each rank against one process: losses and norms worst "
+          f"{worst['history']:.2e} of the history's largest (limit "
+          f"{DP_RTOL}); weights worst {worst['weights']:.2e} lr (limit 0.1 "
+          f"lr), the inter-group attention vectors {worst['noisy']:.2e} lr "
+          f"(limit 4 lr); generators equal")
+
+
+def dp_phase(rng, smi):
+    """Data parallelism over scenes (``grouptraj_torch.parallel``,
+    ``train()``'s ``num_devices > 1``) on the one card: DP_WORLD gloo ranks
+    on cuda:0, spawned by ``data_parallel.spawn`` (NCCL refuses two ranks
+    on one device; gloo sums CUDA tensors through the host), TF32 off. The
+    times are one card's with gloo through the host, not a multi-card
+    speed.
+
+    (a) the gat preset at full width, batch 64 (32 scenes a rank), best_k
+        20, S=64/N=64 synthetic data, float32 no-grad legs: on 'scan' and
+        'fused', one warm-up and DP_ITERS iterations of train_iterations
+        (``data_parallel.run_iterations``) on each rank against the same in
+        one process, generators seeded alike (every draw global, sliced by
+        the rank): losses, norms and weights as many_phase holds them; K1
+        x4 and K2 x3 an iteration on each rank; ms an iteration on each
+        rank beside the one-process step, the all-reduce's bytes a step
+        and ms a call;
+    (b) K1 and K2 at a rank's shapes (S=32) against their plain versions,
+        timed beside their bounds;
+    (c) train() of DP_LOOP_ITERS iterations on the ranks ('fused', the
+        loop phase's synthetic split, 3 buckets, a checkpoint event at the
+        end): launches, finite histories, rank 0 alone saving, its file
+        reloading;
+    (d) the nccl backend at world size 1, in this process: one 'scan'
+        iteration with the group installed, every all-reduce through
+        NCCL.
+    -> (launches of (a), (c) and (d) by path, summed over the ranks; K1/K2
+    timings at the rank's shapes)."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.parallel import data_parallel as DPL
+    from grouptraj_torch.parallel.mesh import (
+        init_data_parallel, set_dp_group, shard_scenes,
+    )
+    from grouptraj_torch.train import checkpoint as CK
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.steps import init_train_state, train_iterations
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    f32 = dataclasses.replace(TrainConfig(), bf16_nograd=False)
+    S, impls = f32.batch_size, ("scan", "fused")
+    spec = dict(num_seq=256, N=64, seed=3)
+    idx = np.random.default_rng(5).integers(0, 256, (1 + DP_ITERS, 2, S))
+    job = dict(cfg=cfg, tcfg=f32, runs=[(spec, idx)], state_seed=LOOP_SEED,
+               gen_seed=7, warm=1)
+    tmp = tempfile.mkdtemp(prefix="grouptraj_dp_")
+    try:
+        root = os.path.join(tmp, "data")
+        write_scene_files(os.path.join(root, "synth", "train"), n_files=3,
+                          frames=560, max_peds=57, seed=0)
+        write_scene_files(os.path.join(root, "synth", "val"), n_files=1,
+                          frames=200, max_peds=57, seed=1)
+        loop_tcfg = TrainConfig(
+            dataset_name="synth", batch_size=64, best_k=20, n_buckets=3,
+            steps_per_dispatch=10, print_every=10,
+            checkpoint_every=DP_LOOP_ITERS, num_epochs=0, seed=LOOP_SEED,
+            lstm_impl="fused", checkpoint_name="dp", num_devices=DP_WORLD,
+            output_dir=os.path.join(tmp, "out"))
+        outs = {k: os.path.join(tmp, k) for k in ("iters", "loop")}
+        for d in outs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        DPL.spawn(DPL.each_rank, DP_WORLD, "gloo",
+                  device_of_rank=lambda r: "cuda:0",
+                  init_file=os.path.join(tmp, "store"),
+                  args=([(DPL.iterations_rank,
+                          dict(job, impls=impls, time_reduce=True),
+                          outs["iters"]),
+                         (DPL.train_rank,
+                          dict(cfg=cfg, tcfg=loop_tcfg, data_dir=root,
+                               runs=[(DP_LOOP_ITERS, False)]),
+                          outs["loop"])],))
+        spawn_s = time.perf_counter() - t0
+        ranks = DPL.load_results(outs["iters"], DP_WORLD)
+        loop_ranks = DPL.load_results(outs["loop"], DP_WORLD)
+        for r in ranks + loop_ranks:
+            if r["foreign_modules"]:
+                fail(f"dp: a rank imported {r['foreign_modules']}")
+
+        # (a) each rank against one process, launches, times
+        launches = {}
+        for impl in impls:
+            one = DPL.run_iterations(impl=impl, device="cuda", **job)
+            got = [r[impl] for r in ranks]
+            want = {k: v * DP_ITERS for k, v in DP_PER_ITER.items()}
+            for r, res in enumerate(got):
+                have = {k: res["launches"][k] for k in want}
+                if have != want:
+                    fail(f"dp {impl}: rank {r} launched {have} in "
+                         f"{DP_ITERS} iterations, not {want}")
+            print(f"dp {impl}: launches a rank in {DP_ITERS} iterations "
+                  f"{[json.dumps(res['launches']) for res in got]}")
+            _dp_report(f"dp {impl}", got, one, f32)
+            launches[impl] = {k: sum(res["launches"][k] for res in got)
+                              for k in got[0]["launches"]}
+            calls, nbytes = got[0]["reduce_calls"], got[0]["reduce_bytes"]
+            print(f"dp {impl}: ms an iteration on {DP_WORLD} gloo ranks "
+                  f"sharing cuda:0 (32 scenes each) "
+                  + ", ".join(f"rank {r} {res['ms_per_iter']:.1f}"
+                              for r, res in enumerate(got))
+                  + f"; one process, 64 scenes: {one['ms_per_iter']:.1f}; "
+                  f"all-reduce {calls // DP_ITERS} calls and "
+                  f"{nbytes // DP_ITERS} bytes an iteration ({nbytes // calls}"
+                  f" bytes a step); one card, gloo through the host, not a "
+                  f"multi-card speed; {smi}")
+        print(f"dp: one all-reduce of {ranks[0]['reduce_numel']} float32 "
+              f"values (a step's mean) {ranks[0]['reduce_ms']:.3f} ms "
+              f"(rank 0; rank 1 {ranks[1]['reduce_ms']:.3f} ms); gloo on "
+              f"one card; {smi}")
+
+        # (b) K1 and K2 at a rank's shapes: rank 0's scenes, one process
+        st = init_train_state(cfg, f32, device="cuda", generator=torch.
+                              Generator(device="cuda").manual_seed(LOOP_SEED))
+        data = synthetic_device_data(**spec, device="cuda")
+        shard = torch.as_tensor(shard_scenes(idx[:1], 0, DP_WORLD),
+                                device="cuda")
+        with _pool_calls() as (seen, first):
+            train_iterations(st, data, shard, cfg, f32, torch.Generator(
+                device="cuda").manual_seed(7), impl="scan")
+        torch.cuda.synchronize()
+        print(f"dp: a rank's K1/K2 calls {sorted(set(seen))}")
+        # the rank's 32 scenes, and the d-step's discriminator scoring real
+        # and fake of them in one stacked call
+        if sorted({s_ for _, _, s_, _, _ in seen}) != [S // DP_WORLD,
+                                                        2 * S // DP_WORLD]:
+            fail(f"dp: a rank's pool calls are not at S={S // DP_WORLD} "
+                 f"(and {2 * S // DP_WORLD}, D's real | fake)")
+        timed = _hold_pool_shapes("dp", first, rng, 1, smi)
+        del st, data, seen, first
+
+        # (c) train() on the ranks
+        runs = [r["runs"][0] for r in loop_ranks]
+        for r, run in enumerate(runs):
+            c = run["launches"]
+            if c["pool_core_bwd"] != 3 * DP_LOOP_ITERS or \
+                    c["pool_core_fwd"] < 4 * DP_LOOP_ITERS:
+                fail(f"dp loop: rank {r} launched {c} in {DP_LOOP_ITERS} "
+                     f"iterations")
+            h = run["ckpt"]
+            vals = ([v for vs in h["G_losses"].values() for v in vs]
+                    + [v for vs in h["D_losses"].values() for v in vs]
+                    + h["norm_g"] + h["norm_d"]
+                    + [v for vs in h["metrics_val"].values() for v in vs])
+            if h["counters"]["t"] != DP_LOOP_ITERS or not vals \
+                    or not all(math.isfinite(v) for v in vals):
+                fail(f"dp loop: rank {r} ended at {h['counters']} with "
+                     f"histories {vals}")
+        if runs[0]["ckpt"] != runs[1]["ckpt"]:
+            fail("dp loop: the ranks' histories differ")
+        # each rank trains into <output_dir>/rank<r>: only rank 0 writes
+        written = {d: sorted(os.listdir(os.path.join(loop_tcfg.output_dir,
+                                                     d)))
+                   for d in sorted(os.listdir(loop_tcfg.output_dir))}
+        if written != {"rank0": ["dp_no_model.pt", "dp_with_model.pt"]}:
+            fail(f"dp loop: the ranks wrote {written}, not rank 0's two "
+                 f"files alone")
+        path = os.path.join(loop_tcfg.output_dir, "rank0", "dp_with_model.pt")
+        st = CK.state_from_checkpoint(CK.load_checkpoint(path), cfg,
+                                      loop_tcfg, "cuda")
+        for part, module in (("g", st.g), ("d", st.d)):
+            for name, w in module.named_parameters():
+                if not torch.equal(w.detach().cpu(), runs[0][part][name]):
+                    fail(f"dp loop: {path} holds another {part}.{name} "
+                         f"than the run's")
+        launches["loop"] = {k: sum(run["launches"][k] for run in runs)
+                            for k in runs[0]["launches"]}
+        print(f"dp loop: train() of {DP_LOOP_ITERS} iterations on "
+              f"{DP_WORLD} gloo ranks ('fused'), launches a rank "
+              f"{[json.dumps(run['launches']) for run in runs]}, "
+              f"{[round(run['seconds'], 1) for run in runs]} s; rank "
+              f"0 wrote {written['rank0']}, rank 1 nothing; dp_with_model.pt "
+              f"reloads the run's weights; last val ade "
+              f"{runs[0]['ckpt']['metrics_val']['ade'][-1]:.4f}; the spawn "
+              f"with (a) took {spawn_s:.1f} s")
+
+        # (d) nccl at world size 1, in this process (a process start costs
+        # ~8 s on the card's host)
+        t0 = time.perf_counter()
+        prev = set_dp_group(init_data_parallel(
+            1, 0, "nccl", "file://" + os.path.join(tmp, "store_nccl"),
+            "cuda:0"))
+        try:
+            res = DPL.run_iterations(**dict(job, runs=[(spec, idx[:1])],
+                                            warm=0), impl="scan",
+                                     device="cuda")
+        finally:
+            set_dp_group(prev)
+            dist.destroy_process_group()
+        if {k: res["launches"][k] for k in DP_PER_ITER} != DP_PER_ITER \
+                or res["reduce_calls"] != 2 or not all(
+                    bool(torch.isfinite(v).all())
+                    for v in res["history"].values()):
+            fail(f"dp nccl: one iteration at world size 1 gave {res}")
+        launches["nccl"] = res["launches"]
+        print(f"dp nccl: world size 1, one 'scan' iteration, "
+              f"{res['reduce_calls']} all-reduces through NCCL "
+              f"({res['reduce_bytes']} bytes), launches "
+              f"{json.dumps(res['launches'])}; "
+              f"{time.perf_counter() - t0:.1f} s with the group's set-up")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dp phase: {time.perf_counter() - t_phase:.1f} s")
+    paths = {"train_dp": {k: launches["scan"][k] + launches["fused"][k]
+                          for k in launches["scan"]},
+             "loop_dp": launches["loop"], "train_dp_nccl": launches["nccl"]}
+    return paths, timed
+
+
 def main():
     import numpy as np
     import torch
@@ -3462,6 +3734,7 @@ def main():
     option_launches, option_folded = options_phase(
         batches, noises, smi.splitlines()[0])
     md_launches, md_timed, _ = many_dropout_phase(rng, smi.splitlines()[0])
+    dp_launches, dp_timed = dp_phase(rng, smi.splitlines()[0])
     bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
@@ -3478,7 +3751,10 @@ def main():
     # rows in the dropout1 model's per-sample g-step), and train_many of
     # the dropout1 model (K1/K2 at R = 4 under the nested vmap) and of the
     # dropout model (the pair pool: K1 in its metric sweeps only)
-    # (many_dropout_phase). No
+    # (many_dropout_phase), and data parallelism over scenes: train_iterations
+    # on two gloo ranks on 'scan' and 'fused' (K1/K2 at each rank's 32
+    # scenes), train() on the ranks and one iteration on nccl at world size
+    # 1 (dp_phase, the launches summed over the ranks). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -3501,12 +3777,13 @@ def main():
              "loop_pallas": loop_launches["pallas"], **preset_launches,
              "train_many": many_launches,
              **{f"options_{k}": v for k, v in option_launches.items()},
-             **md_launches}
+             **md_launches, **dp_launches}
     # K1/K2 at the R = 4 shapes of a 4-seed training iteration, without
-    # dropout and with dropout1
-    many_shapes, md_shapes = (
+    # dropout and with dropout1, and at a data-parallel rank's shapes
+    many_shapes, md_shapes, dp_shapes = (
         {kind: {tag: t for (k_, tag), t in t_.items() if k_ == kind}
-         for kind in ("fwd", "bwd")} for t_ in (many_timed, md_timed))
+         for kind in ("fwd", "bwd")}
+        for t_ in (many_timed, md_timed, dp_timed))
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               by_paths=paths, **more):
@@ -3535,6 +3812,7 @@ def main():
               timed["S64_N64_B8"],
               shapes_train_many=many_shapes["fwd"],
               shapes_train_many_dropout1=md_shapes["fwd"],
+              shapes_train_dp=dp_shapes["fwd"],
               **tc_more(timed["S64_N64_B8"], timed,
                           "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
@@ -3543,6 +3821,7 @@ def main():
               phases=bwd_timed["S128_N64_B48"]["phases"],
               shapes_train_many=many_shapes["bwd"],
               shapes_train_many_dropout1=md_shapes["bwd"],
+              shapes_train_dp=dp_shapes["bwd"],
               **tc_more(bwd_timed["S128_N64_B48"], bwd_timed,
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",

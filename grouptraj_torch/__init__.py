@@ -6,7 +6,10 @@ is a hand-written CUDA kernel under ``csrc/`` with a plain PyTorch twin in
 the same module. Ported: the data layer (``data/``), Bo20 evaluation
 (``eval/``) and serving for every zoo model (``gat``, ``gat-mh``,
 ``gcn-pool``); training (``train/``: the d-step + g-step, the loop with
-its metric sweeps, checkpoints in the JAX package's schema, a CLI):
+its metric sweeps, checkpoints in the JAX package's schema, a CLI,
+multi-seed sweeps); data parallelism over scenes in ``train()``
+(``parallel/``: ranks of a ``torch.distributed`` group, ``torchrun`` with
+the CLI's ``--num_devices``):
 
     from grouptraj_torch.serve import Predictor
     p = Predictor.from_checkpoint("models/grouptraj/zara1_12_with_model.pt")

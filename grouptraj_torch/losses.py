@@ -14,6 +14,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from grouptraj_torch.parallel.mesh import (
+    get_dp_group, global_count, global_sum,
+)
+
 Scalar = Union[float, torch.Tensor]
 
 
@@ -21,13 +25,16 @@ def bce_loss(logits: torch.Tensor, target: Union[Scalar, torch.Tensor],
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Numerically-stable logits BCE, mean over (valid) entries:
     ``max(x,0) - x*y + log(1 + exp(-|x|))`` (reference
-    ``sgan/losses.py:5-21``)."""
+    ``sgan/losses.py:5-21``). Under data parallelism the count is every
+    rank's and the result this rank's share of the mean."""
     loss = torch.clamp(logits, min=0) - logits * target + torch.log1p(
         torch.exp(-torch.abs(logits)))
     if mask is None:
-        return loss.mean()
+        if get_dp_group() is None:
+            return loss.mean()
+        return loss.sum() / global_count(loss.numel(), loss.device)
     mask = mask.to(loss.dtype)
-    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (loss * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def gan_g_loss(scores_fake: torch.Tensor, y: Scalar,
@@ -53,12 +60,12 @@ def l2_loss(pred: torch.Tensor, gt: torch.Tensor, loss_mask: torch.Tensor,
     ``[..., N, T, 2]``, loss_mask ``[..., N, T]``; mode 'sum' | 'average' |
     'raw' ('raw' returns per-ped ``[..., N]``). 'average' divides by
     numel(loss_mask) like the reference (the count of mask entries, not of
-    ones)."""
+    ones; every rank's under data parallelism)."""
     sq = loss_mask[..., None] * (gt - pred) ** 2
     if mode == "sum":
         return sq.sum()
     if mode == "average":
-        return sq.sum() / loss_mask.numel()
+        return sq.sum() / global_count(loss_mask.numel(), sq.device)
     if mode == "raw":
         return sq.sum(dim=(-2, -1))
     raise ValueError(mode)

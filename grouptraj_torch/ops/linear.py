@@ -31,6 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from grouptraj_torch.parallel.mesh import (
+    DPGroup, get_dp_group, global_sum, shard_scenes,
+)
+
 BN_EPS = 1e-5
 
 
@@ -100,6 +104,33 @@ class ShapeRecorder(KeepMasks):
         return torch.ones(tuple(shape), dtype=torch.bool, device=device)
 
 
+class ShardedMasks(KeepMasks):
+    """Keep-masks drawn (or injected) at the global shape and sliced, for a
+    data-parallel rank (``parallel/mesh.py``): asked for ``[b·L, ...]`` it
+    asks ``inner`` for ``[b·L·world, ...]`` and keeps this rank's block of
+    each of the ``b`` scene blocks."""
+
+    def __init__(self, inner: KeepMasks, dp: DPGroup, blocks: int = 1):
+        self.inner, self.dp, self.blocks = inner, dp, blocks
+
+    def keep(self, shape, keep, device):
+        shape = tuple(shape)
+        m = self.inner.keep((shape[0] * self.dp.world,) + shape[1:], keep,
+                            device)
+        return shard_scenes(m, self.dp.rank, self.dp.world, 0, self.blocks)
+
+
+def sharded_masks(masks: Optional[KeepMasks], blocks: int = 1
+                  ) -> Optional[KeepMasks]:
+    """``masks`` for this rank's scenes, ``blocks`` scene blocks a mask
+    (2 for the discriminator's stacked real | fake call): ``masks`` itself
+    without a data-parallel group or without a source."""
+    dp = get_dp_group()
+    if dp is None or masks is None:
+        return masks
+    return ShardedMasks(masks, dp, blocks)
+
+
 def apply_dropout(x: torch.Tensor, p: float,
                   masks: Optional[KeepMasks]) -> torch.Tensor:
     """Inverted dropout: kept entries scaled by ``1/(1-p)``, the rest 0;
@@ -129,13 +160,17 @@ def normalize(layer: dict, x: torch.Tensor,
     """BatchNorm over every axis but the last, on the batch's statistics:
     with ``mask`` (broadcastable to ``x[..., 0]``) the mean and biased
     variance of the masked rows, ``max(Σmask, 1)`` of them; then
-    ``bn_scale``/``bn_bias``."""
+    ``bn_scale``/``bn_bias``. Under data parallelism the batch is every
+    rank's rows: the sums are summed over the ranks, inside autograd."""
     red = tuple(range(x.dim() - 1))
+    if mask is None and get_dp_group() is not None:
+        mask = x.new_ones(x.shape[:-1])
     if mask is not None:
         m = mask[..., None].to(x.dtype)
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (x * m).sum(dim=red) / cnt
-        var = (m * (x - mean) ** 2).sum(dim=red) / cnt
+        cnt = torch.clamp(global_sum(m.sum()), min=1.0)
+        mean = global_sum((x * m).sum(dim=red), differentiable=True) / cnt
+        var = global_sum((m * (x - mean) ** 2).sum(dim=red),
+                         differentiable=True) / cnt
     else:
         mean = x.mean(dim=red)
         var = x.var(dim=red, unbiased=False)

@@ -8,6 +8,17 @@ The reference's flags and defaults, as the JAX package's scripts take them
 ``cuda``). Datasets resolve through ``utils.get_dset_path`` (set
 ``GROUPTRAJ_DATA_DIR``); checkpoints go to ``--output_dir`` and a run
 resumes from ``<checkpoint_name>_with_model.pt`` there.
+
+Data parallelism over scenes, one process a rank (``--batch_size`` divisible
+by the rank count):
+
+    torchrun --nproc_per_node 2 -m grouptraj_torch.train.cli --num_devices 2 \
+        --dataset_name zara1
+
+Under ``torchrun`` the process group is made from its environment with
+``--dist_backend`` (default ``nccl``: one card a rank, rank i on
+``cuda:LOCAL_RANK`` unless ``--device`` names one; ``gloo`` for the CPU or
+ranks that share a card).
 """
 
 from __future__ import annotations
@@ -127,8 +138,12 @@ def build_parser(gcn_variant: bool = False) -> argparse.ArgumentParser:
                         "kernel = the CUDA pair core K1/K2); auto = kernel "
                         "for CUDA tensors")
     p.add_argument("--num_devices", default=1, type=int,
-                   help="devices: 1 (the port trains on one device; more "
-                        "raises NotImplementedError)")
+                   help="data-parallel ranks (launch one process each with "
+                        "torchrun); 0 = torchrun's world size, without "
+                        "torchrun every visible card")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a data-parallel run")
     p.add_argument("--profile_dir", default="", type=str,
                    help="write a torch.profiler trace of iterations 50-60")
     p.add_argument("--gcn_variant", default=int(gcn_variant), type=int,
@@ -205,7 +220,24 @@ def main(argv=None) -> dict:
     args = build_parser(gcn_variant).parse_args(argv)
     logging.basicConfig(level=logging.INFO, format=FORMAT, stream=sys.stdout)
     mcfg, tcfg = configs_from_args(args, gcn_variant)
-    return train(mcfg, tcfg, args_snapshot=vars(args), device=args.device)
+    device = args.device
+    if args.num_devices != 1 and "LOCAL_RANK" in os.environ:
+        device = _join_torchrun(args.dist_backend, device)
+    return train(mcfg, tcfg, args_snapshot=vars(args), device=device)
+
+
+def _join_torchrun(backend: str, device):
+    """Make the process group from torchrun's environment -> this rank's
+    device (``device``, or ``cuda:LOCAL_RANK``)."""
+    from grouptraj_torch.parallel.mesh import (
+        check_backend, init_data_parallel,
+    )
+    local, n_local = (int(os.environ[k]) for k in ("LOCAL_RANK",
+                                                    "LOCAL_WORLD_SIZE"))
+    check_backend(backend, [device or f"cuda:{i}" for i in range(n_local)])
+    device = device or f"cuda:{local}"
+    init_data_parallel(backend=backend, device=device)
+    return device
 
 
 if __name__ == "__main__":

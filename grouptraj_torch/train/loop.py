@@ -20,7 +20,20 @@ a :class:`Draws` replaces each dispatch's per-iteration draws and each
 sweep's per-batch draws, so a test can inject the JAX package's.
 
 Runs on ``cuda`` unless ``device`` names another device; the LSTM route is
-``select_impl(cfg, tcfg)``. One device only: ``num_devices > 1`` raises.
+``select_impl(cfg, tcfg)``.
+
+Data parallelism over scenes (``num_devices > 1``, ``parallel/mesh.py``):
+one process a rank, in a process group of ``num_devices`` ranks made
+before the call (``torchrun`` with ``train.cli``, or
+``parallel.data_parallel.spawn``). ``num_devices=0`` is the group's world
+size, else every visible CUDA device (1 on the CPU), as the JAX package's
+0 is every device of its one process; but the port runs one process a
+rank, so several cards without a group raise with the launch recipe.
+Every rank builds the same index streams and runs each dispatch on its
+block of every batch's scenes, the steps summing over the ranks; the
+metric sweeps run on each rank's block of each batch and sum their sums;
+rank 0 alone writes the files (checkpoints and profiler traces), and every
+rank loads a resumed one.
 """
 
 from __future__ import annotations
@@ -39,6 +52,10 @@ from grouptraj_torch.config import ModelConfig, TrainConfig
 from grouptraj_torch.data.batching import DenseDataset, DenseLoader
 from grouptraj_torch.data.dataset import TrajectoryDataset
 from grouptraj_torch.ops.lstm import select_impl
+from grouptraj_torch.parallel.mesh import (
+    DPGroup, barrier, get_dp_group, is_writer, replicate_state,
+    set_dp_group, shard_scenes, world_group,
+)
 from grouptraj_torch.train import checkpoint as ckpt_lib
 from grouptraj_torch.train.device_data import (
     BucketScheduler, IndexStream, device_dataset, make_buckets,
@@ -156,14 +173,45 @@ def make_dispatch_source(cfg: ModelConfig, tcfg: TrainConfig, train_dset,
     return DispatchSource(tcfg, stream=stream, data=data)
 
 
-def _check_devices(tcfg: TrainConfig, dev: torch.device) -> None:
+def num_devices(tcfg: TrainConfig, dev: torch.device
+                ) -> Tuple[int, Optional[DPGroup]]:
+    """``tcfg.num_devices`` resolved (0: the world size of the group in
+    force; without one every visible CUDA device when ``dev`` is a card,
+    else 1) and that group (the one installed, else ``torch.distributed``'s
+    default one; None if neither exists)."""
+    dp = get_dp_group() or world_group()
     n = tcfg.num_devices
-    if n <= 0:                                   # 0 = every visible device
-        n = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if n > 1:
-        raise NotImplementedError(
-            f"num_devices={n}: data-parallel training is not ported yet "
-            "(ROADMAP.md queue 1 item 1); the port trains on one device")
+    if n <= 0:
+        if dp is not None:
+            n = dp.world
+        else:
+            n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return n, dp
+
+
+def _check_devices(tcfg: TrainConfig, dev: torch.device
+                   ) -> Optional[DPGroup]:
+    """The group ``train()`` shards over: None on one device; for
+    ``num_devices > 1`` the group in force, which must have that many
+    ranks, each holding ``batch_size / num_devices`` scenes of a batch."""
+    n, dp = num_devices(tcfg, dev)
+    if n == 1:
+        return None
+    if tcfg.batch_size % n:
+        raise ValueError(f"batch_size={tcfg.batch_size} must be divisible "
+                         f"by num_devices={n}")
+    if dp is None or dp.world != n:
+        raise ValueError(
+            f"num_devices={tcfg.num_devices}"
+            f"{f' (every visible card: {n})' if tcfg.num_devices <= 0 else ''}"
+            f" trains on {n} ranks of a process group, and "
+            f"{'none is' if dp is None else f'one of {dp.world} is'} made: "
+            f"launch one process a rank, e.g. `torchrun --nproc_per_node "
+            f"{n} -m grouptraj_torch.train.cli --num_devices {n} ...` "
+            f"(--dist_backend nccl, one card a rank), or make the group "
+            f"with grouptraj_torch.parallel.mesh.init_data_parallel "
+            f"before train()")
+    return dp
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig,
@@ -171,9 +219,19 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
           device: Union[str, torch.device, None] = None,
           draws: Optional[Draws] = None, return_state: bool = False):
     """Run training -> the final checkpoint dict, or ``(checkpoint,
-    TrainState)`` with ``return_state``."""
+    TrainState)`` with ``return_state``. With ``num_devices > 1`` this is
+    one rank of a data-parallel run (the module's docstring); ``draws``
+    then gives the global batch's draws, which each rank slices."""
     dev = resolve_device(device)
-    _check_devices(tcfg, dev)
+    prev = set_dp_group(_check_devices(tcfg, dev))
+    try:
+        return _train(cfg, tcfg, args_snapshot, dev, draws, return_state)
+    finally:
+        set_dp_group(prev)
+
+
+def _train(cfg, tcfg, args_snapshot, dev, draws, return_state):
+    dp = get_dp_group()
     impl = select_impl(cfg, tcfg)
     train_dset, train_loader, val_loader = build_loaders(cfg, tcfg)
 
@@ -210,6 +268,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
         ckpt["restore_ts"].append(t)
     else:
         ckpt = ckpt_lib.new_checkpoint(args_snapshot)
+    replicate_state(state)
     # the streams' epoch counters start at 0 in this process: offset them
     # by the restored epoch
     epoch0 = epoch
@@ -221,10 +280,25 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     val_idx_host = _sweep_indices(val_loader.dense.num_seq, tcfg.batch_size)
     eval_rng, nb_limit = make_train_eval_subset(tcfg, train_loader.dense)
 
+    def shard(idx):
+        """This rank's scenes of every batch of ``idx`` [..., S] -> the
+        device."""
+        if dp is not None:
+            idx = shard_scenes(idx, dp.rank, dp.world)
+        return torch.from_numpy(np.ascontiguousarray(idx)).to(dev,
+                                                              torch.long)
+
     def run_sweep(data, idx_host, sweep_draws):
-        idx = torch.from_numpy(idx_host).to(dev, torch.long)
-        sums = read_sums(acc_sweep(state, data, idx, gen, sweep_draws))
+        sums = read_sums(acc_sweep(state, data, shard(idx_host), gen,
+                                   sweep_draws))
         return summarize_check_accuracy(sums, len(idx_host), cfg.pred_len)
+
+    def save():
+        """Rank 0 writes both files; the others wait until it has."""
+        if is_writer():
+            ckpt_lib.save_checkpoint(ckpt, tcfg.output_dir,
+                                     tcfg.checkpoint_name)
+        barrier()
 
     # per-iteration grad norms stay on the device until an event
     pending = {"norm_d": [], "norm_g": []}
@@ -241,7 +315,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
 
     def run_chunk(t, idx, data, chunk_draws):
         """``train_iterations`` over the dispatch; with ``profile_dir`` the
-        iterations of PROFILE_ITERS run apart, under torch.profiler."""
+        iterations of PROFILE_ITERS run apart, under torch.profiler on the
+        writer (rank 0)."""
         lo, hi = PROFILE_ITERS
         n = len(idx)
         cuts = [0, n]
@@ -249,7 +324,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
             cuts = sorted({0, n} | {min(max(x - t, 0), n) for x in (lo, hi)})
         parts = []
         for a, b in zip(cuts[:-1], cuts[1:]):
-            traced = bool(tcfg.profile_dir) and lo <= t + a < hi
+            traced = (bool(tcfg.profile_dir) and lo <= t + a < hi
+                      and is_writer())
             with _profiled(tcfg.profile_dir, dev,
                            f"trace_{t + a}_{t + b}.json" if traced else None):
                 parts.append(train_iterations(
@@ -291,8 +367,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
             t1 = time.time()
         chunk_draws = (None if draws is None
                        else list(draws.iterations(this_chunk)))
-        losses = run_chunk(t, torch.from_numpy(idx).to(dev, torch.long),
-                           data, chunk_draws)
+        losses = run_chunk(t, shard(idx), data, chunk_draws)
         if tcfg.timing:
             sync()
             logger.info("chunk of %d iterations took %.4f", this_chunk,
@@ -364,8 +439,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
                 ckpt["best_t_nl"] = t
                 ckpt["g_best_nl_state"] = ckpt["g_state"]
                 ckpt["d_best_nl_state"] = ckpt["d_state"]
-            ckpt_lib.save_checkpoint(ckpt, tcfg.output_dir,
-                                     tcfg.checkpoint_name)
+            save()
             logger.info("Saved checkpoint to %s", tcfg.output_dir)
             window_t0, t_window_start = time.time(), t
             window_traj = 0
@@ -379,7 +453,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     if ckpt.get("g_best_state") is None:
         ckpt["g_best_state"] = ckpt["g_state"]
         ckpt["d_best_state"] = ckpt["d_state"]
-    ckpt_lib.save_checkpoint(ckpt, tcfg.output_dir, tcfg.checkpoint_name)
+    save()
     return (ckpt, state) if return_state else ckpt
 
 

@@ -52,8 +52,8 @@ from grouptraj_torch.ops.lstm import select_impl
 from grouptraj_torch.train import checkpoint as ckpt_lib
 from grouptraj_torch.train.device_data import device_dataset
 from grouptraj_torch.train.loop import (
-    Draws, _check_devices, _sweep_indices, build_loaders,
-    make_dispatch_source, make_train_eval_subset,
+    Draws, _sweep_indices, build_loaders, make_dispatch_source,
+    make_train_eval_subset, num_devices,
 )
 from grouptraj_torch.train.steps import (
     check_accuracy_sweep_many, init_train_state, stack_states,
@@ -112,7 +112,13 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
     if draws is not None and len(draws) != len(seeds):
         raise ValueError(f"{len(draws)} Draws for {len(seeds)} seeds")
     dev = resolve_device(device)
-    _check_devices(tcfg, dev)
+    n_dev = num_devices(tcfg, dev)[0]
+    if n_dev > 1:
+        raise NotImplementedError(
+            f"train_many with num_devices={n_dev}: the seed vmap over "
+            f"data-parallel scene shards is not ported yet (ROADMAP.md "
+            f"queue 1: train_many's data-parallel composition); train() "
+            f"runs data-parallel")
     impl = select_impl(cfg, tcfg)
     if impl != "scan":
         logger.info("train_many: lstm_impl %s -> scan (vmap-safe)", impl)

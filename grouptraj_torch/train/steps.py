@@ -26,7 +26,13 @@
 - every step takes ``impl``, the LSTM route of all its recurrences
   (``ops/lstm.py``: ``'scan'``, ``'fused'``, the whole-loop kernels, or
   ``'pallas'``, the projection-in-kernel encoders);
-  left None it is ``select_impl(cfg, tcfg)``, i.e. ``tcfg.lstm_impl``.
+  left None it is ``select_impl(cfg, tcfg)``, i.e. ``tcfg.lstm_impl``;
+- under data parallelism (a group installed, ``parallel/mesh.py``) a step
+  runs on this rank's scenes: every draw is made (or injected) at the
+  global batch's shape and sliced to them, the losses' normalisers and
+  BatchNorm's statistics are global, and the gradients and loss values are
+  summed over the ranks in one all-reduce before the clip; the metric
+  sweep sums its sums over the ranks.
 
 A step mutates the models and optimizers of its :class:`TrainState` in
 place and returns the losses as device tensors under the JAX package's
@@ -61,8 +67,12 @@ from grouptraj_torch.models.generator import (
 from grouptraj_torch.models.modules import GCN, GATLayer
 from grouptraj_torch.ops.linear import (
     DrawnMasks, InjectedMasks, KeepMasks, ShapeRecorder, as_mask,
+    sharded_masks,
 )
 from grouptraj_torch.ops.lstm import select_impl
+from grouptraj_torch.parallel.mesh import (
+    all_reduce_grads, global_scenes, shard_draw,
+)
 from grouptraj_torch.train.device_data import gather_batch
 from grouptraj_torch.utils import relative_to_abs, resolve_device
 
@@ -252,7 +262,7 @@ def d_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     data_loss = d_loss(state.g, state.d, batch, cfg, tcfg, impl=impl,
                        masks=mask_source(cfg, generator, masks), **kw)
     grads = torch.autograd.grad(data_loss, list(state.d.parameters()))
-    data_loss = data_loss.detach()
+    *grads, data_loss = all_reduce_grads([*grads, data_loss.detach()])
     return {"D_data_loss": data_loss, "D_total_loss": data_loss}, grads
 
 
@@ -262,10 +272,14 @@ def d_draws(cfg: ModelConfig, S: int, N: int,
             ) -> dict:
     """A d-step's draws, in the order a step takes them from ``generator``
     (the sample noise ``[S, N, nd]``, then the label-smoothing scalar);
-    an injected value is kept and draws nothing."""
+    an injected value is kept and draws nothing. Under data parallelism the
+    noise is drawn (or injected) at the global batch's scene count and
+    sliced to this rank's ``S``."""
     if noise is None and cfg.noise_first_dim:
-        noise = sample_noises(cfg, 1, S, N, generator, device)[0]
-    return dict(noise=noise, label=_label(label, generator, device))
+        noise = sample_noises(cfg, 1, global_scenes(S), N, generator,
+                              device)[0]
+    return dict(noise=shard_draw(noise),
+                label=_label(label, generator, device))
 
 
 def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
@@ -281,14 +295,15 @@ def d_loss(g: TrajectoryGenerator, d: TrajectoryDiscriminator, b: Batch,
 
 def _d_loss(g, d, b, cfg, tcfg, noise, label, impl, masks):
     S = b["valid"].shape[0]
+    g_masks = sharded_masks(masks)
     with torch.no_grad():
         # no gradient flows through the generator here; with bf16_nograd
         # the decode leg runs in bfloat16 (the context stays float32: it
         # feeds the pool kernel; the decode is where the rows are) on the
         # same float32-drawn noise
         ctx = g.generator_context(b["obs"], b["obs_rel"], b["group"],
-                                  b["valid"], impl, masks)
-        at = dict(obs=b["obs"], group_end=b["group"], masks=masks)
+                                  b["valid"], impl, g_masks)
+        at = dict(obs=b["obs"], group_end=b["group"], masks=g_masks)
         if tcfg.bf16_nograd:
             pred_rel_fake = g.generator_sample(
                 ctx.bfloat16(), b["obs_rel"].bfloat16(), b["valid"],
@@ -300,13 +315,15 @@ def _d_loss(g, d, b, cfg, tcfg, noise, label, impl, masks):
     tr, trr, tf, tfr = _trajs(b, pred_rel_fake)
     if cfg.batch_norm:
         # batch statistics couple the scenes of a call: fake, then real
-        scores_fake = d(tf, tfr, b["valid"], impl, masks)
-        scores_real = d(tr, trr, b["valid"], impl, masks)
+        scores_fake = d(tf, tfr, b["valid"], impl, g_masks)
+        scores_real = d(tr, trr, b["valid"], impl, g_masks)
         return L.gan_d_loss(scores_real, scores_fake, label, b["valid"])
     # real and fake scored in ONE stacked forward: scenes are independent
-    # rows, so this halves the discriminator's sequential depth
+    # rows, so this halves the discriminator's sequential depth; its masks
+    # hold a real and a fake block of scenes
     scores = d(torch.cat([tr, tf], dim=0), torch.cat([trr, tfr], dim=0),
-               torch.cat([b["valid"], b["valid"]], dim=0), impl, masks)
+               torch.cat([b["valid"], b["valid"]], dim=0), impl,
+               sharded_masks(masks, blocks=2))
     return L.gan_d_loss(scores[:S], scores[S:], label, b["valid"])
 
 
@@ -350,16 +367,16 @@ def g_gradients(state: TrainState, batch: Batch, cfg: ModelConfig,
     if _dropout(cfg):
         kw["sample_masks"] = stacked_sample_masks(
             cfg, tcfg.best_k, S, N, generator, dev, sample_masks)
-    variety, adv, total = g_loss(state.g, state.d, batch, cfg, tcfg,
-                                 impl=impl,
-                                 d_masks=mask_source(cfg, generator, d_masks),
-                                 **kw)
+    variety, adv, total = g_loss(
+        state.g, state.d, batch, cfg, tcfg, impl=impl,
+        d_masks=sharded_masks(mask_source(cfg, generator, d_masks)), **kw)
     # gradients with respect to G only: D's parameters are constants here
     # and their .grad is never touched
     grads = torch.autograd.grad(total, list(state.g.parameters()))
-    return {"G_l2_loss_rel": variety.detach(),
-            "G_discriminator_loss": adv.detach(),
-            "G_total_loss": total.detach()}, grads
+    *grads, variety, adv, total = all_reduce_grads(
+        [*grads, variety.detach(), adv.detach(), total.detach()])
+    return {"G_l2_loss_rel": variety, "G_discriminator_loss": adv,
+            "G_total_loss": total}, grads
 
 
 def g_draws(cfg: ModelConfig, tcfg: TrainConfig, S: int, N: int,
@@ -367,10 +384,13 @@ def g_draws(cfg: ModelConfig, tcfg: TrainConfig, S: int, N: int,
             noises: Optional[torch.Tensor] = None, label: Label = None
             ) -> dict:
     """A g-step's draws in a step's order: the best-of-k noises
-    ``[best_k, S, N, nd]``, then the label-smoothing scalar."""
+    ``[best_k, S, N, nd]``, then the label-smoothing scalar; under data
+    parallelism global and sliced, as :func:`d_draws`'s."""
     if noises is None and cfg.noise_first_dim:
-        noises = sample_noises(cfg, tcfg.best_k, S, N, generator, device)
-    return dict(noises=noises, label=_label(label, generator, device))
+        noises = sample_noises(cfg, tcfg.best_k, global_scenes(S), N,
+                               generator, device)
+    return dict(noises=shard_draw(noises, axis=1),
+                label=_label(label, generator, device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -457,7 +477,8 @@ def stacked_sample_masks(cfg: ModelConfig, K: int, S: int, N: int,
     """The per-sample g-step's keep-masks, one ``[K, ...]`` bool tensor a
     mask of the forward: ``sample_masks`` (K sequences of masks, sample by
     sample) stacked, or drawn from ``generator`` at the shapes
-    :func:`sample_mask_shapes` finds, mask by mask."""
+    :func:`sample_mask_shapes` finds, mask by mask. Under data parallelism
+    both are the global batch's, sliced to this rank's scenes."""
     if sample_masks is not None:
         if len(sample_masks) != K:
             raise ValueError(f"{len(sample_masks)} samples' masks for "
@@ -466,10 +487,14 @@ def stacked_sample_masks(cfg: ModelConfig, K: int, S: int, N: int,
         if len({len(ms) for ms in per}) != 1:
             raise ValueError("the samples were given different numbers of "
                              "masks")
-        return [torch.stack([as_mask(ms[i], device) for ms in per])
-                for i in range(len(per[0]))]
-    return [torch.rand((K, *shape), generator=generator, device=device) < keep
-            for shape, keep in sample_mask_shapes(cfg, S, N)]
+        stacked = [torch.stack([as_mask(ms[i], device) for ms in per])
+                   for i in range(len(per[0]))]
+    else:
+        stacked = [torch.rand((K, *shape), generator=generator,
+                              device=device) < keep
+                   for shape, keep in sample_mask_shapes(
+                       cfg, global_scenes(S), N)]
+    return [shard_draw(m, axis=1) for m in stacked]
 
 
 def _per_sample_preds(g: TrajectoryGenerator, b: Batch,
@@ -688,7 +713,10 @@ def make_check_accuracy_sweep(cfg: ModelConfig, impl: str = "scan"
     scene indices on the device (tails padded with the null scene, which
     adds exactly zero to every sum). The per-batch sums are added on the
     device in batch order; the caller reads them back once. ``draws``, when
-    given, is a :data:`SweepDraws` that replaces batch ``i``'s draws."""
+    given, is a :data:`SweepDraws` that replaces batch ``i``'s draws.
+    Under data parallelism ``idx`` holds this rank's scenes of each batch,
+    ``draws`` is asked for the global batch's and the sums are summed over
+    the ranks."""
     raw = make_check_accuracy_step(cfg, impl)
 
     def sweep(state: TrainState, data: Dict[str, torch.Tensor],
@@ -697,13 +725,13 @@ def make_check_accuracy_sweep(cfg: ModelConfig, impl: str = "scan"
         acc = None
         S, N = idx.shape[1], data["valid"].shape[1]
         for i, bidx in enumerate(idx):
-            noise, label = draws(i, S, N) if draws is not None else (None,
-                                                                     None)
+            noise, label = (draws(i, global_scenes(S), N)
+                            if draws is not None else (None, None))
             out = raw(state, gather_batch(data, bidx, cfg.obs_len),
                       generator, noise, label)
             acc = out if acc is None else {k: acc[k] + v
                                            for k, v in out.items()}
-        return acc
+        return dict(zip(acc, all_reduce_grads(list(acc.values()))))
 
     return sweep
 

@@ -304,7 +304,9 @@ def test_profile_and_timing_leave_the_run_unchanged(data_root, tmp_path,
                                                     monkeypatch, caplog):
     """With profile_dir the traced iterations run as their own dispatch
     under torch.profiler (a Chrome trace each), with timing each dispatch
-    is synchronised and logged; neither changes a number."""
+    is synchronised and logged; neither changes a number. A data-parallel
+    rank other than 0 (``is_writer()`` false) writes no trace and no
+    checkpoint."""
     import logging
     monkeypatch.setattr(LOOP, "PROFILE_ITERS", (1, 3))
     base = dict(TRAIN, num_iterations=4, checkpoint_every=4, n_buckets=2,
@@ -322,6 +324,13 @@ def test_profile_and_timing_leave_the_run_unchanged(data_root, tmp_path,
     assert traced["norm_g"] == plain["norm_g"]
     assert traced["G_losses"] == plain["G_losses"]
     assert traced["metrics_val"] == plain["metrics_val"]
+    monkeypatch.setattr(LOOP, "is_writer", lambda: False)
+    quiet = LOOP.train(CFG, TrainConfig(
+        **base, output_dir=str(tmp_path / "c"),
+        profile_dir=str(tmp_path / "prof_c")), device="cpu")
+    assert not (tmp_path / "c").exists()
+    assert not (tmp_path / "prof_c").exists()
+    assert quiet["G_losses"] == plain["G_losses"]
 
 
 def test_resumed_loop_matches_grouptraj(runs):
@@ -481,5 +490,5 @@ def test_cli_trains_resumes_and_refuses_many_devices(data_root, tmp_path):
     assert ckpt["counters"]["t"] == 3 and ckpt["restore_ts"] == [2]
     assert ckpt["args"]["device"] == "cpu"
     assert ckpt["args"]["resolved_model_config"]["graph_module"] == "gat"
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 1\)"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2"):
         cli.main(["--device", "cpu", "--num_devices", "2"])

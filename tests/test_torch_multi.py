@@ -497,7 +497,8 @@ def test_refusals_and_cli(case, data_root, tmp_path):
             MULTI.train_many(CFG, _small(str(tmp_path)), [5, 5],
                              device="cpu")
     elif case == "devices":
-        with pytest.raises(NotImplementedError, match=r"queue 1 item 1\)"):
+        with pytest.raises(NotImplementedError,
+                           match="train_many's data-parallel composition"):
             MULTI.train_many(CFG, _small(str(tmp_path), num_devices=2),
                              SEEDS, device="cpu")
     elif case == "cli":
