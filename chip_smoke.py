@@ -149,6 +149,15 @@ Phases, each of which fails the run on any error:
    against their plain versions; train() of 20 iterations on the two ranks
    with a checkpoint rank 0 alone writes and that reloads; one iteration
    on the nccl backend at world size 1;
+13b. many dp: multi-seed sweeps over the data-parallel ranks
+   (many_dp_phase): the gat preset at full width, 2 seeds, batch 64 on two
+   gloo ranks on cuda:0 (32 scenes each), train_iterations_many on each
+   rank against the same sweep in one process (K1 x4 and K2 x3 an
+   iteration on each rank, at R = 2), the ``--dropout1 0.2`` model's sweep
+   iteration likewise, K1 and K2 at a rank's R = 2 shapes against their
+   plain versions with bounds, train_many on the ranks for 10 iterations
+   resumed from rank 0's sweep directory to 20 (rank 0 alone writes the
+   s<seed>/ files), and one sweep iteration on nccl at world size 1;
 14. bf16: K1 and K2 in their bf16 mode (the TPU kernels' at JAX's default
    matmul precision; ``grouptraj_torch.ops.precision``) against their
    plain versions in that mode at S=64/N=64/B=8, S=256/N=16/B=8,
@@ -3417,40 +3426,98 @@ DP_RTOL = MANY_RTOL          # a rank against one process, TF32 off
 DP_PER_ITER = MANY_PER_ITER
 
 
-def _dp_report(label, ranks, one, tcfg):
-    """Each rank's run (:func:`grouptraj_torch.parallel.data_parallel.
-    run_iterations`) against the one-process run: losses and norms within
-    DP_RTOL of each history's largest entry, weights within lr/10 (the
-    inter-group attention vectors, whose gradients are rounding noise, 4
-    lr), the generator left in the same state (the same draws)."""
+DP_ROUNDING_LR = 0.5         # lr: where a change of rounding alone moves
+                             # a weight (the worst read on an H100: 0.12 lr)
+DP_MAX_NEAR_TIES = 8         # such entries a rank, the attention vectors
+                             # apart (read on an H100: 1 and 2)
+
+
+def _seed_axis(res):
+    """A one-seed run's results (``data_parallel.run_iterations``) in the
+    form of a sweep's (``run_iterations_many``): a seed axis of 1."""
+    return {"history": {k: v[None] for k, v in res["history"].items()},
+            "generators": [res["generator"]],
+            **{p: {n: w[None] for n, w in res[p].items()} for p in "gd"}}
+
+
+def _dp_report(label, ranks, one, tcfg, seeds=None, alts=None):
+    """Each rank's run against the one-process run ``one``: of
+    ``data_parallel.run_iterations``, or with ``seeds`` of
+    ``run_iterations_many``'s sweep of those seeds, held seed by seed.
+    Losses and norms within DP_RTOL of each history's largest entry, the
+    generators left in the same state (the same draws), every seed's
+    discriminator alive in ``one`` (a gradient in some iteration);
+    weights within lr/10, but within DP_ROUNDING_LR lr where a change of
+    rounding alone moves them: the inter-group attention vectors (their
+    gradients are rounding noise, which Adam turns into steps of up to lr)
+    and, with ``alts`` (seed i's 1-seed sweep in one process: the same
+    arithmetic but for the vmapped products' width), every other entry
+    that ``alts[i]`` moves by more than lr/100 from ``one``, such as one
+    fed by a near-tie of the pool's max that the two resolve otherwise: at
+    most DP_MAX_NEAR_TIES such entries a rank."""
     import torch
+    if seeds is None:
+        ranks, one, seeds = [_seed_axis(r) for r in ranks], _seed_axis(one), [
+            None]
     lr = {"g": tcfg.g_learning_rate, "d": tcfg.d_learning_rate}
-    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0}
-    for r, got in enumerate(ranks):
-        for k, ref in one["history"].items():
-            d = (got["history"][k] - ref).abs().max().item() / max(
-                ref.abs().max().item(), 1e-12)
-            worst["history"] = max(worst["history"], d)
-            if not d <= DP_RTOL:
-                fail(f"{label}: rank {r} {k} {got['history'][k].tolist()} "
-                     f"against one process {ref.tolist()}")
-        for part in ("g", "d"):
-            for name, w in one[part].items():
-                d = (got[part][name] - w).abs().max().item()
-                key, tol = (("noisy", 4 * lr[part]) if _noisy(name)
-                            else ("weights", lr[part] / 10))
-                worst[key] = max(worst[key], d / lr[part])
-                if not d <= tol:
-                    fail(f"{label}: rank {r} {part}.{name} differs by "
-                         f"{d:.3e} from one process (limit {tol:.1e})")
-        if not torch.equal(got["generator"], one["generator"]):
-            fail(f"{label}: rank {r}'s generator ended elsewhere than one "
-                 f"process's: it drew other draws")
-    print(f"{label}: each rank against one process: losses and norms worst "
+    worst = {"history": 0.0, "weights": 0.0, "noisy": 0.0, "near_ties": 0.0}
+    ties = [0] * len(ranks)
+    for i, seed in enumerate(seeds):
+        of = "" if seed is None else f" seed {seed}"
+        if not one["history"]["norm_d"][i].max() > 0:
+            fail(f"{label}:{of} the discriminator had no gradient in one "
+                 f"process")
+        for r, got in enumerate(ranks):
+            for k, ref in one["history"].items():
+                d = (got["history"][k][i] - ref[i]).abs().max().item() / max(
+                    ref[i].abs().max().item(), 1e-12)
+                worst["history"] = max(worst["history"], d)
+                if not d <= DP_RTOL:
+                    fail(f"{label}: rank {r}{of} {k} "
+                         f"{got['history'][k][i].tolist()} against one "
+                         f"process {ref[i].tolist()}")
+            for part in ("g", "d"):
+                for name, w in one[part].items():
+                    err = (got[part][name][i] - w[i]).abs() / lr[part]
+                    if _noisy(name):
+                        key, tie = "noisy", torch.zeros_like(err, dtype=bool)
+                    else:
+                        key = "weights"
+                        tie = (torch.zeros_like(err, dtype=bool)
+                               if alts is None else
+                               (alts[i][part][name][0] - w[i]).abs()
+                               > lr[part] / 100)
+                    ties[r] += int(tie.sum())
+                    worst[key] = max(worst[key], float(
+                        torch.where(tie, 0.0, err).max()))
+                    worst["near_ties"] = max(worst["near_ties"], float(
+                        torch.where(tie, err, 0.0).max()))
+                    tol = torch.where(tie, DP_ROUNDING_LR, 0.1) if \
+                        key == "weights" else torch.full_like(
+                            err, DP_ROUNDING_LR)
+                    if not (err <= tol).all():
+                        j = int((err - tol).argmax())
+                        fail(f"{label}: rank {r}{of} {part}.{name}[{j}] "
+                             f"differs by {err.flatten()[j]:.3e} lr from one"
+                             f" process (limit {tol.flatten()[j]} lr)")
+            if not torch.equal(got["generators"][i], one["generators"][i]):
+                fail(f"{label}: rank {r}'s generator{of} ended elsewhere "
+                     f"than one process's: it drew other draws")
+    if max(ties) > DP_MAX_NEAR_TIES:
+        fail(f"{label}: {ties} weight entries a rank moved by a change of "
+             f"rounding alone, more than {DP_MAX_NEAR_TIES}")
+    print(f"{label}: each rank against one process"
+          f"{'' if seeds == [None] else f' seed by seed {seeds}'}, every "
+          f"discriminator alive: losses and norms worst "
           f"{worst['history']:.2e} of the history's largest (limit "
           f"{DP_RTOL}); weights worst {worst['weights']:.2e} lr (limit 0.1 "
           f"lr), the inter-group attention vectors {worst['noisy']:.2e} lr "
-          f"(limit 4 lr); generators equal")
+          f"(limit {DP_ROUNDING_LR} lr)"
+          + ("" if alts is None else
+             f", entries a change of rounding alone moves (the 1-seed "
+             f"sweeps): {ties} a rank (limit {DP_MAX_NEAR_TIES}), worst "
+             f"{worst['near_ties']:.2e} lr (limit {DP_ROUNDING_LR} lr)")
+          + "; generators equal")
 
 
 def dp_phase(rng, smi):
@@ -3466,7 +3533,7 @@ def dp_phase(rng, smi):
         'fused', one warm-up and DP_ITERS iterations of train_iterations
         (``data_parallel.run_iterations``) on each rank against the same in
         one process, generators seeded alike (every draw global, sliced by
-        the rank): losses, norms and weights as many_phase holds them; K1
+        the rank): losses, norms and weights held by :func:`_dp_report`; K1
         x4 and K2 x3 an iteration on each rank; ms an iteration on each
         rank beside the one-process step, the all-reduce's bytes a step
         and ms a call;
@@ -3668,6 +3735,260 @@ def dp_phase(rng, smi):
     return paths, timed
 
 
+# ------------------------------------- sweeps over data-parallel ranks
+
+MDP_SEEDS = (6, 7)           # the sweep's seeds: both discriminators alive
+MDP_D1_SEEDS = (6, 10)       # the dropout1 sweep's: both discriminators
+                             # alive (7's, 8's and 9's have no gradient)
+MDP_ITERS = 2                # timed iterations, after one warm-up
+MDP_RUNS = ((10, False), (20, True))   # train_many on the ranks, resumed
+
+
+def many_dp_phase(rng, smi):
+    """Multi-seed sweeps over data-parallel scene shards (``train_many``
+    with ``num_devices > 1``: the seed vmap outside, the ranks inside) on
+    the one card: DP_WORLD gloo ranks on cuda:0 spawned by
+    ``data_parallel.spawn`` (``sweep_rank``), TF32 off; one card with
+    gloo through the host, not a multi-card speed.
+
+    (a) the gat preset at full width, batch 64 (32 scenes a rank), best_k
+        20, 'scan', the seeds MDP_SEEDS, S=64/N=64 synthetic data, float32
+        no-grad legs: one warm-up and MDP_ITERS iterations of
+        train_iterations_many (``data_parallel.run_iterations_many``) on
+        each rank against the same sweep in one process, every replica's
+        generator seeded alike (every draw global, sliced by the rank):
+        losses and norms within DP_RTOL, weights within lr/10 but where a
+        change of rounding alone moves them, generators equal
+        (:func:`_dp_report`); K1 x4 and K2 x3 an iteration on
+        each rank; ms an iteration on each rank beside the one-process
+        sweep, the all-reduce's calls and bytes;
+    (b) the ``--dropout1 0.2`` model's sweep of the seeds MDP_D1_SEEDS, one
+        iteration on the ranks (the per-sample vmap nested in the seed
+        vmap, its keep-masks drawn at the global batch's shapes and sliced)
+        against one process, held as (a);
+    (c) K1 and K2 at a rank's shapes (R = 2 seeds, S = 32, D's stacked
+        real | fake call at 64) against their plain versions, timed beside
+        their bounds;
+    (d) train_many of the seeds on the loop phase's synthetic split
+        (batch 64, best_k 20, 3 buckets, dispatches of 10, a checkpoint
+        every 10) on the ranks for MDP_RUNS: 10 iterations, then resumed
+        from rank 0's sweep directory to 20 (each rank writes into
+        ``<output_dir>/rank<r>``: rank 0's holds the s<seed>/ files, rank
+        1's nothing); K2 exactly 3 and K1 at least 4 an iteration on each
+        rank, finite histories, the ranks' histories and generator states
+        equal;
+    (e) the nccl backend at world size 1, in this process: one sweep
+        iteration with the group installed, both all-reduces through NCCL.
+    -> (launches of (a)+(b), (d) and (e) by path, summed over the ranks;
+    K1/K2 timings at the rank's shapes)."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.data.synthetic import write_scene_files
+    from grouptraj_torch.parallel import data_parallel as DPL
+    from grouptraj_torch.parallel.mesh import (
+        init_data_parallel, set_dp_group, shard_scenes,
+    )
+    from grouptraj_torch.train.device_data import synthetic_device_data
+    from grouptraj_torch.train.multi import RNG_KEY
+    from grouptraj_torch.train.steps import (
+        init_train_state, stack_states, train_iterations_many,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    f32 = dataclasses.replace(TrainConfig(), bf16_nograd=False)
+    S, seeds = f32.batch_size, list(MDP_SEEDS)
+    gen_seeds = [1000 + s for s in seeds]
+    spec = dict(num_seq=256, N=64, seed=3)
+    idx = np.random.default_rng(5).integers(0, 256, (1 + MDP_ITERS, 2, S))
+    job = dict(cfg=cfg, tcfg=f32, runs=[(spec, idx)], state_seeds=seeds,
+               gen_seeds=gen_seeds, warm=1)
+    d1job = dict(job, cfg=_cli_config("--dropout1", "0.2"),
+                 state_seeds=list(MDP_D1_SEEDS),
+                 gen_seeds=[1000 + s for s in MDP_D1_SEEDS],
+                 runs=[(spec, idx[:1])], warm=0)
+    per_iter = {k: v * MDP_ITERS for k, v in DP_PER_ITER.items()}
+    tmp = tempfile.mkdtemp(prefix="grouptraj_many_dp_")
+    try:
+        root = os.path.join(tmp, "data")
+        write_scene_files(os.path.join(root, "synth", "train"), n_files=3,
+                          frames=560, max_peds=57, seed=0)
+        write_scene_files(os.path.join(root, "synth", "val"), n_files=1,
+                          frames=200, max_peds=57, seed=1)
+        loop_tcfg = TrainConfig(
+            dataset_name="synth", batch_size=64, best_k=20, n_buckets=3,
+            steps_per_dispatch=10, print_every=10, checkpoint_every=10,
+            num_epochs=0, seed=seeds[0], checkpoint_name="mdp",
+            num_devices=DP_WORLD, output_dir=os.path.join(tmp, "out"))
+        out = os.path.join(tmp, "ranks")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        DPL.spawn(DPL.sweep_rank, DP_WORLD, "gloo",
+                  device_of_rank=lambda r: "cuda:0",
+                  init_file=os.path.join(tmp, "store"),
+                  args=(dict(iterations={"gat": job, "dropout1": d1job},
+                             cfg=cfg, tcfg=loop_tcfg, seeds=seeds,
+                             data_dir=root, runs=MDP_RUNS), out))
+        spawn_s = time.perf_counter() - t0
+        ranks = DPL.load_results(out, DP_WORLD)
+        for r in ranks:
+            if r["foreign_modules"]:
+                fail(f"many dp: a rank imported {r['foreign_modules']}")
+
+        # (a) and (b): each rank's sweep against one process
+        launches = {}
+        for name, want in (("gat", per_iter), ("dropout1", DP_PER_ITER)):
+            kw = job if name == "gat" else d1job
+            one = DPL.run_iterations_many(device="cuda", **kw)
+            alts = [DPL.run_iterations_many(device="cuda", **dict(
+                kw, state_seeds=[s], gen_seeds=[g]))
+                for s, g in zip(kw["state_seeds"], kw["gen_seeds"])]
+            got = [r["iterations"][name] for r in ranks]
+            for r, res in enumerate(got):
+                have = {k: res["launches"][k] for k in want}
+                if have != want or any(res["launches"][k] for k in
+                                       res["launches"] if k not in want):
+                    fail(f"many dp {name}: rank {r} launched "
+                         f"{res['launches']} in {res['iterations']} "
+                         f"iterations, not {want} and no LSTM kernel")
+            print(f"many dp {name}: launches a rank in {got[0]['iterations']}"
+                  f" iteration(s) {[json.dumps(res['launches']) for res in got]}")
+            _dp_report(f"many dp {name}", got, one, f32, kw["state_seeds"],
+                       alts)
+            launches[name] = {k: sum(res["launches"][k] for res in got)
+                              for k in got[0]["launches"]}
+            calls, nbytes = got[0]["reduce_calls"], got[0]["reduce_bytes"]
+            print(f"many dp {name}: ms an iteration of the {len(seeds)}-seed "
+                  f"sweep on {DP_WORLD} gloo ranks sharing cuda:0 (32 scenes "
+                  f"each) " + ", ".join(f"rank {r} {res['ms_per_iter']:.1f}"
+                                        for r, res in enumerate(got))
+                  + f"; one process, 64 scenes: {one['ms_per_iter']:.1f}; "
+                  f"all-reduce {calls} calls and {nbytes} bytes in "
+                  f"{got[0]['iterations']} iteration(s) ({nbytes // calls} "
+                  f"bytes a step); one card, gloo through the host, not a "
+                  f"multi-card speed; {smi}")
+            del one, alts, got
+
+        # (c) K1 and K2 at a rank's shapes: rank 0's scenes, one process
+        st = stack_states([init_train_state(
+            cfg, f32, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(s))
+            for s in seeds], f32)
+        data = synthetic_device_data(**spec, device="cuda")
+        shard = torch.as_tensor(shard_scenes(idx[:1], 0, DP_WORLD),
+                                device="cuda")
+        with _pool_calls() as (seen, first):
+            train_iterations_many(st, data, shard, cfg, f32, [
+                torch.Generator(device="cuda").manual_seed(s)
+                for s in gen_seeds])
+        torch.cuda.synchronize()
+        print(f"many dp: a rank's K1/K2 calls {sorted(set(seen))}")
+        if sorted({r_ for _, r_, *_ in seen}) != [len(seeds)] or sorted(
+                {s_ for _, _, s_, _, _ in seen}) != [S // DP_WORLD,
+                                                     2 * S // DP_WORLD]:
+            fail(f"many dp: a rank's pool calls are not at R = {len(seeds)}"
+                 f" and S = {S // DP_WORLD} (and {2 * S // DP_WORLD}, D's "
+                 f"real | fake)")
+        timed = _hold_pool_shapes("many dp", first, rng, len(seeds), smi)
+        del st, data, seen, first
+
+        # (d) train_many on the ranks, resumed from rank 0's files
+        runs = [r["runs"] for r in ranks]
+        done = 0
+        for j, (iters, restore) in enumerate(MDP_RUNS):
+            ran = iters - done
+            for r, rank in enumerate(runs):
+                run = rank[j]
+                c = run["launches"]
+                if c["pool_core_bwd"] != 3 * ran or \
+                        c["pool_core_fwd"] < 4 * ran:
+                    fail(f"many dp loop: rank {r} launched {c} in {ran} "
+                         f"iterations")
+                for s in seeds:
+                    h = run["ckpt"][s]
+                    vals = ([v for vs in h["G_losses"].values() for v in vs]
+                            + [v for vs in h["D_losses"].values()
+                               for v in vs] + h["norm_g"] + h["norm_d"]
+                            + [v for vs in h["metrics_val"].values()
+                               for v in vs])
+                    if h["counters"]["t"] != iters or not vals or not all(
+                            math.isfinite(v) for v in vals) or (
+                            restore and h["restore_ts"] != [done]):
+                        fail(f"many dp loop: rank {r} seed {s} ended at "
+                             f"{h['counters']} (restore_ts "
+                             f"{h['restore_ts']}) with histories {vals}")
+            for s in seeds:
+                a, b = (rank[j]["ckpt"][s] for rank in runs)
+                if {k: v for k, v in a.items() if k != RNG_KEY} != {
+                        k: v for k, v in b.items() if k != RNG_KEY} \
+                        or not torch.equal(a[RNG_KEY], b[RNG_KEY]):
+                    fail(f"many dp loop: the ranks' histories or generator "
+                         f"states of seed {s} differ")
+            print(f"many dp loop: train_many of {len(seeds)} seeds, "
+                  f"{ran} iterations{' (resumed)' if restore else ''} on "
+                  f"{DP_WORLD} gloo ranks, launches a rank "
+                  f"{[json.dumps(rank[j]['launches']) for rank in runs]}, "
+                  f"{[round(rank[j]['seconds'], 1) for rank in runs]} s, "
+                  f"all-reduce {runs[0][j]['reduce_calls']} calls; {smi}")
+            done = iters
+        written = {d: sorted(os.listdir(os.path.join(loop_tcfg.output_dir,
+                                                     d)))
+                   for d in sorted(os.listdir(loop_tcfg.output_dir))}
+        files = ["mdp_no_model.pt", "mdp_with_model.pt"]
+        if written != {"rank0": [f"s{s}" for s in seeds]} or any(
+                sorted(os.listdir(os.path.join(loop_tcfg.output_dir,
+                                               "rank0", f"s{s}"))) != files
+                for s in seeds):
+            fail(f"many dp loop: the ranks wrote {written}, not rank 0's "
+                 f"s<seed>/ files alone")
+        launches["loop"] = {k: sum(rank[j]["launches"][k] for rank in runs
+                                   for j in range(len(MDP_RUNS)))
+                            for k in runs[0][0]["launches"]}
+        print(f"many dp loop: rank 0 wrote {written['rank0']} with {files}"
+              f", rank 1 nothing; last val ade per seed "
+              + json.dumps({s: runs[0][-1]["ckpt"][s]["metrics_val"]["ade"]
+                            [-1:] for s in seeds})
+              + f"; the spawn took {spawn_s:.1f} s")
+
+        # (e) nccl at world size 1, in this process
+        t0 = time.perf_counter()
+        prev = set_dp_group(init_data_parallel(
+            1, 0, "nccl", "file://" + os.path.join(tmp, "store_nccl"),
+            "cuda:0"))
+        try:
+            res = DPL.run_iterations_many(**dict(
+                job, runs=[(spec, idx[:1])], warm=0), device="cuda")
+        finally:
+            set_dp_group(prev)
+            dist.destroy_process_group()
+        if {k: res["launches"][k] for k in DP_PER_ITER} != DP_PER_ITER \
+                or res["reduce_calls"] != 2 or not all(
+                    bool(torch.isfinite(v).all())
+                    for v in res["history"].values()):
+            fail(f"many dp nccl: one sweep iteration at world size 1 gave "
+                 f"{res['launches']}, {res['reduce_calls']} all-reduces, "
+                 f"{res['history']}")
+        launches["nccl"] = res["launches"]
+        print(f"many dp nccl: world size 1, one {len(seeds)}-seed sweep "
+              f"iteration, {res['reduce_calls']} all-reduces through NCCL "
+              f"({res['reduce_bytes']} bytes), launches "
+              f"{json.dumps(res['launches'])}; "
+              f"{time.perf_counter() - t0:.1f} s with the group's set-up")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"many dp phase: {time.perf_counter() - t_phase:.1f} s")
+    paths = {"train_many_dp": {k: launches["gat"][k] + launches["dropout1"][k]
+                               for k in launches["gat"]},
+             "train_many_dp_loop": launches["loop"],
+             "train_many_dp_nccl": launches["nccl"]}
+    return paths, timed
+
+
 def main():
     import numpy as np
     import torch
@@ -3735,6 +4056,7 @@ def main():
         batches, noises, smi.splitlines()[0])
     md_launches, md_timed, _ = many_dropout_phase(rng, smi.splitlines()[0])
     dp_launches, dp_timed = dp_phase(rng, smi.splitlines()[0])
+    mdp_launches, mdp_timed = many_dp_phase(rng, smi.splitlines()[0])
     bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
@@ -3754,7 +4076,11 @@ def main():
     # (many_dropout_phase), and data parallelism over scenes: train_iterations
     # on two gloo ranks on 'scan' and 'fused' (K1/K2 at each rank's 32
     # scenes), train() on the ranks and one iteration on nccl at world size
-    # 1 (dp_phase, the launches summed over the ranks). No
+    # 1 (dp_phase, the launches summed over the ranks), and train_many over
+    # the ranks: a 2-seed sweep's iterations without dropout and with
+    # dropout1 (K1/K2 at R = 2 on each rank's 32 scenes), train_many on the
+    # ranks with a resume and a sweep iteration on nccl at world size 1
+    # (many_dp_phase, summed over the ranks). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -3777,13 +4103,14 @@ def main():
              "loop_pallas": loop_launches["pallas"], **preset_launches,
              "train_many": many_launches,
              **{f"options_{k}": v for k, v in option_launches.items()},
-             **md_launches, **dp_launches}
+             **md_launches, **dp_launches, **mdp_launches}
     # K1/K2 at the R = 4 shapes of a 4-seed training iteration, without
-    # dropout and with dropout1, and at a data-parallel rank's shapes
-    many_shapes, md_shapes, dp_shapes = (
+    # dropout and with dropout1, at a data-parallel rank's shapes, and at
+    # a rank's shapes of a 2-seed sweep over the ranks
+    many_shapes, md_shapes, dp_shapes, mdp_shapes = (
         {kind: {tag: t for (k_, tag), t in t_.items() if k_ == kind}
          for kind in ("fwd", "bwd")}
-        for t_ in (many_timed, md_timed, dp_timed))
+        for t_ in (many_timed, md_timed, dp_timed, mdp_timed))
 
     def entry(name, source, replaces, err, shape, t, library_ms=None,
               by_paths=paths, **more):
@@ -3813,6 +4140,7 @@ def main():
               shapes_train_many=many_shapes["fwd"],
               shapes_train_many_dropout1=md_shapes["fwd"],
               shapes_train_dp=dp_shapes["fwd"],
+              shapes_train_many_dp=mdp_shapes["fwd"],
               **tc_more(timed["S64_N64_B8"], timed,
                           "pool_core_fwd_kernel")),
         entry("pool_core_bwd", "grouptraj_torch/csrc/pool_core_bwd.cu",
@@ -3822,6 +4150,7 @@ def main():
               shapes_train_many=many_shapes["bwd"],
               shapes_train_many_dropout1=md_shapes["bwd"],
               shapes_train_dp=dp_shapes["bwd"],
+              shapes_train_many_dp=mdp_shapes["bwd"],
               **tc_more(bwd_timed["S128_N64_B48"], bwd_timed,
                           "ties_kernel")),
         entry("lstm_fused_fwd", "grouptraj_torch/csrc/lstm_fused_fwd.cu",

@@ -9,6 +9,19 @@
 shared batch schedule is seeded by the first replica seed. Each seed writes
 standard checkpoints to ``<output_dir>/s<seed>/``; a rerun with
 ``--restore_from_checkpoint 1`` resumes the sweep (``train/multi.py``).
+
+Data-parallel over scenes, one process a rank (``train/cli.py``'s
+recipe), every rank holding all the seeds and running each batch's
+block of scenes:
+
+    torchrun --nproc_per_node 2 -m grouptraj_torch.train.cli_many \
+        --num_devices 2 --seeds 13,14 --dataset_name zara2 \
+        --output_dir runs/z2_sweep
+
+With ``--num_devices`` other than 1 under ``torchrun`` the process joins
+the group (``--dist_backend``, default ``nccl``, one card a rank) and
+trains on ``cuda:LOCAL_RANK`` unless ``--device`` names a device; rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -16,9 +29,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 
-from grouptraj_torch.train.cli import FORMAT, build_parser, configs_from_args
+from grouptraj_torch.train.cli import (
+    FORMAT, _join_torchrun, build_parser, configs_from_args,
+)
 
 
 def main(argv=None) -> dict:
@@ -40,8 +56,11 @@ def main(argv=None) -> dict:
     mcfg, tcfg = configs_from_args(args, gcn_variant)
     # the shared batch schedule is seeded by the sweep's first seed
     tcfg = dataclasses.replace(tcfg, seed=seeds[0])
+    device = args.device
+    if args.num_devices != 1 and "LOCAL_RANK" in os.environ:
+        device = _join_torchrun(args.dist_backend, device)
     return train_many(mcfg, tcfg, seeds, args_snapshot=vars(args),
-                      device=args.device)
+                      device=device)
 
 
 if __name__ == "__main__":

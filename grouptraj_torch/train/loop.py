@@ -189,11 +189,13 @@ def num_devices(tcfg: TrainConfig, dev: torch.device
     return n, dp
 
 
-def _check_devices(tcfg: TrainConfig, dev: torch.device
+def _check_devices(tcfg: TrainConfig, dev: torch.device,
+                   entry: str = "grouptraj_torch.train.cli"
                    ) -> Optional[DPGroup]:
-    """The group ``train()`` shards over: None on one device; for
-    ``num_devices > 1`` the group in force, which must have that many
-    ranks, each holding ``batch_size / num_devices`` scenes of a batch."""
+    """The group ``train()`` (or ``train_many``) shards over: None on one
+    device; for ``num_devices > 1`` the group in force, which must have
+    that many ranks, each holding ``batch_size / num_devices`` scenes of a
+    batch. ``entry`` is the module the launch recipe names."""
     n, dp = num_devices(tcfg, dev)
     if n == 1:
         return None
@@ -207,10 +209,10 @@ def _check_devices(tcfg: TrainConfig, dev: torch.device
             f" trains on {n} ranks of a process group, and "
             f"{'none is' if dp is None else f'one of {dp.world} is'} made: "
             f"launch one process a rank, e.g. `torchrun --nproc_per_node "
-            f"{n} -m grouptraj_torch.train.cli --num_devices {n} ...` "
+            f"{n} -m {entry} --num_devices {n} ...` "
             f"(--dist_backend nccl, one card a rank), or make the group "
             f"with grouptraj_torch.parallel.mesh.init_data_parallel "
-            f"before train()")
+            f"before the call")
     return dp
 
 

@@ -1,5 +1,6 @@
 """Multi-seed sweeps: N replicas of one configuration trained as one program
-on one device (counterpart of ``grouptraj/train/multi.py``).
+on one device, or on each rank of a data-parallel group (counterpart of
+``grouptraj/train/multi.py``).
 
 The replicas' weights, Adam moments and EMA are stacked on a leading seed
 axis (:class:`steps.StackedState`); every d-step, g-step and metric sweep
@@ -30,10 +31,23 @@ and fast-forwards the host's batch schedule and the train-sweep subset
 draws. A sweep written by the JAX package restores with fresh per-seed
 chains and a warning (its files carry JAX keys, ``rng_key_vec``). Refused:
 duplicate seeds, a partial sweep, a seed-set mismatch, members at
-different t, t beyond ``num_iterations``, ``num_devices > 1``.
+different t, t beyond ``num_iterations``.
 
 Randomness goes through the seam of ``loop.train``: ``draws``, one
 :class:`loop.Draws` per seed, replaces each replica's draws.
+
+Data parallelism over scenes (``num_devices > 1``, as ``loop.train``): the
+seed vmap outside, the scene shards inside, as in the JAX package. Each
+rank of a process group of ``num_devices`` ranks (``torchrun`` with
+``train.cli_many``, or ``parallel.data_parallel.spawn``) holds all N
+replicas' stacked weights and Adam state, every replica's generator
+seeded alike, and runs each dispatch and each metric sweep on its block
+of every batch's scenes: K1/K2 at R = N on S / world scenes, every draw
+made at the global batch's shape and sliced, the normalisers and
+BatchNorm's statistics global, the stacked gradients and loss values
+summed over the ranks in one all-reduce a step before each replica's
+clip, the sweeps' sums summed. Rank 0 alone writes ``<output_dir>/
+s<seed>/``; a resume reads the same files on every rank.
 """
 
 from __future__ import annotations
@@ -49,11 +63,15 @@ import torch
 
 from grouptraj_torch.config import ModelConfig, TrainConfig
 from grouptraj_torch.ops.lstm import select_impl
+from grouptraj_torch.parallel.mesh import (
+    barrier, get_dp_group, is_writer, replicate_state, set_dp_group,
+    shard_scenes,
+)
 from grouptraj_torch.train import checkpoint as ckpt_lib
 from grouptraj_torch.train.device_data import device_dataset
 from grouptraj_torch.train.loop import (
-    Draws, _sweep_indices, build_loaders, make_dispatch_source,
-    make_train_eval_subset, num_devices,
+    Draws, _check_devices, _sweep_indices, build_loaders,
+    make_dispatch_source, make_train_eval_subset,
 )
 from grouptraj_torch.train.steps import (
     check_accuracy_sweep_many, init_train_state, stack_states,
@@ -105,20 +123,27 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
                return_state: bool = False):
     """Train one replica per seed at once -> ``{seed: checkpoint}``, or
     ``(checkpoints, StackedState)`` with ``return_state``. Runs on ``cuda``
-    unless ``device`` names another device."""
+    unless ``device`` names another device. With ``num_devices > 1`` this
+    is one rank of a data-parallel sweep (the module's docstring);
+    ``draws`` then gives the global batch's draws, which each rank
+    slices."""
     seeds = list(seeds)
     if len(set(seeds)) != len(seeds):
         raise ValueError(f"duplicate seeds: {seeds}")
     if draws is not None and len(draws) != len(seeds):
         raise ValueError(f"{len(draws)} Draws for {len(seeds)} seeds")
     dev = resolve_device(device)
-    n_dev = num_devices(tcfg, dev)[0]
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"train_many with num_devices={n_dev}: the seed vmap over "
-            f"data-parallel scene shards is not ported yet (ROADMAP.md "
-            f"queue 1: train_many's data-parallel composition); train() "
-            f"runs data-parallel")
+    prev = set_dp_group(_check_devices(tcfg, dev,
+                                       "grouptraj_torch.train.cli_many"))
+    try:
+        return _train_many(cfg, tcfg, seeds, args_snapshot, dev, draws,
+                           return_state)
+    finally:
+        set_dp_group(prev)
+
+
+def _train_many(cfg, tcfg, seeds, args_snapshot, dev, draws, return_state):
+    dp = get_dp_group()
     impl = select_impl(cfg, tcfg)
     if impl != "scan":
         logger.info("train_many: lstm_impl %s -> scan (vmap-safe)", impl)
@@ -176,6 +201,8 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
             for ck, s in zip(cks, seeds):
                 ck["restore_ts"].append(t_restored)
                 ckpts[s] = ck
+    for state in states:
+        replicate_state(state)
     st = stack_states(states, tcfg)
     del states
 
@@ -184,10 +211,17 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
     val_idx_host = _sweep_indices(val_loader.dense.num_seq, tcfg.batch_size)
     eval_rng, nb_limit = make_train_eval_subset(tcfg, train_loader.dense)
 
+    def shard(idx):
+        """This rank's scenes of every batch of ``idx`` [..., S] -> the
+        device."""
+        if dp is not None:
+            idx = shard_scenes(idx, dp.rank, dp.world)
+        return torch.from_numpy(np.ascontiguousarray(idx)).to(dev,
+                                                              torch.long)
+
     def run_sweeps(data, idx_host, sweep_draws):
-        idx = torch.from_numpy(idx_host).to(dev, torch.long)
-        sums = check_accuracy_sweep_many(st, data, idx, cfg, gens,
-                                         sweep_draws, impl)
+        sums = check_accuracy_sweep_many(st, data, shard(idx_host), cfg,
+                                         gens, sweep_draws, impl)
         keys = list(sums)
         host = dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
         return [summarize_check_accuracy({k: v[i] for k, v in host.items()},
@@ -215,7 +249,8 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
     def save(t, epoch, mvals=None):
         """Every replica's checkpoint at t: counters, generator state,
         weights and moments, best states; with ``mvals`` (an event) the
-        metric histories and the best-state tracking too."""
+        metric histories and the best-state tracking too. Rank 0 writes
+        the files; the others wait until it has."""
         for i, s in enumerate(seeds):
             ck = ckpts[s]
             ck["counters"]["t"] = t
@@ -235,9 +270,11 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
             elif ck.get("g_best_state") is None:
                 ck["g_best_state"] = ck["g_state"]
                 ck["d_best_state"] = ck["d_state"]
-            ckpt_lib.save_checkpoint(ck, os.path.join(tcfg.output_dir,
-                                                      f"s{s}"),
-                                     tcfg.checkpoint_name)
+            if is_writer():
+                ckpt_lib.save_checkpoint(ck, os.path.join(tcfg.output_dir,
+                                                          f"s{s}"),
+                                         tcfg.checkpoint_name)
+        barrier()
 
     t = 0
     if t_restored > num_iterations:
@@ -283,9 +320,8 @@ def train_many(cfg: ModelConfig, tcfg: TrainConfig, seeds: Sequence[int],
 
         chunk_draws = (None if draws is None
                        else [list(d.iterations(this_chunk)) for d in draws])
-        losses = train_iterations_many(
-            st, data, torch.from_numpy(idx).to(dev, torch.long), cfg, tcfg,
-            gens, chunk_draws, impl)
+        losses = train_iterations_many(st, data, shard(idx), cfg, tcfg,
+                                       gens, chunk_draws, impl)
         for k in pending:
             if k in losses:
                 pending[k].append(losses[k])

@@ -32,7 +32,10 @@
   global batch's shape and sliced to them, the losses' normalisers and
   BatchNorm's statistics are global, and the gradients and loss values are
   summed over the ranks in one all-reduce before the clip; the metric
-  sweep sums its sums over the ranks.
+  sweep sums its sums over the ranks. The seed-stacked steps of
+  ``train_many`` do the same on each rank's shard: the all-reduce sums the
+  stacked gradients ``[N, ...]`` outside the seed vmap, before each
+  replica's clip.
 
 A step mutates the models and optimizers of its :class:`TrainState` in
 place and returns the losses as device tensors under the JAX package's
@@ -71,7 +74,7 @@ from grouptraj_torch.ops.linear import (
 )
 from grouptraj_torch.ops.lstm import select_impl
 from grouptraj_torch.parallel.mesh import (
-    all_reduce_grads, global_scenes, shard_draw,
+    all_reduce_grads, global_scenes, set_dp_group, shard_draw,
 )
 from grouptraj_torch.train.device_data import gather_batch
 from grouptraj_torch.utils import relative_to_abs, resolve_device
@@ -393,12 +396,26 @@ def g_draws(cfg: ModelConfig, tcfg: TrainConfig, S: int, N: int,
                 label=_label(label, generator, device))
 
 
+@contextlib.contextmanager
+def _one_device():
+    """No data-parallel group within the block: a mask-shape dry run finds
+    the shapes of one process's forward on the scenes it is given, whatever
+    group is in force (under one, ``ShardedMasks`` would ask for ``world``
+    times as many), so its cached answer holds in and out of a group."""
+    prev = set_dp_group(None)
+    try:
+        yield
+    finally:
+        set_dp_group(prev)
+
+
 @functools.lru_cache(maxsize=64)
 def sample_mask_shapes(cfg: ModelConfig, S: int, N: int
                        ) -> Tuple[Tuple[Tuple[int, ...], float], ...]:
     """The (shape, keep probability) of every keep-mask one training
     ``generator_forward`` of ``cfg`` asks for on ``[S, N]`` scenes, in
-    order: a dry run on the ``meta`` device, which computes nothing."""
+    order: a dry run on the ``meta`` device, which computes nothing, with
+    no group in force (a rank passes the global batch's ``S``)."""
     with torch.device("meta"):
         g = TrajectoryGenerator(cfg)
         To, nd = cfg.obs_len, cfg.noise_first_dim
@@ -406,7 +423,7 @@ def sample_mask_shapes(cfg: ModelConfig, S: int, N: int
         lab, valid = torch.zeros(S, N), torch.ones(S, N)
         z = torch.zeros(S, N, nd) if nd else None
     rec = ShapeRecorder()
-    with torch.no_grad():
+    with torch.no_grad(), _one_device():
         g.generator_forward(obs, obs, lab, valid, user_noise=z, masks=rec)
     return tuple(rec.asked)
 
@@ -426,13 +443,14 @@ def d_mask_shapes(cfg: ModelConfig, S: int, N: int
     """The (shape, keep probability) of every keep-mask one d-step of
     ``cfg`` asks for on ``[S, N]`` scenes, in order: the generator leg's,
     then D's calls (two with batch_norm, fake then real; else one stacked
-    call). A ``meta``-device dry run of :func:`d_loss`."""
+    call). A ``meta``-device dry run of :func:`d_loss` with no group in
+    force."""
     with torch.device("meta"):
         g, d = TrajectoryGenerator(cfg), TrajectoryDiscriminator(cfg)
         z = (torch.zeros(S, N, cfg.noise_first_dim)
              if cfg.noise_first_dim else None)
     rec = ShapeRecorder()
-    with torch.no_grad():
+    with torch.no_grad(), _one_device():
         d_loss(g, d, _meta_batch(cfg, S, N), cfg,
                TrainConfig(bf16_nograd=False), z, 1.0, "scan", rec)
     return tuple(rec.asked)
@@ -443,13 +461,13 @@ def disc_mask_shapes(cfg: ModelConfig, S: int, N: int
                      ) -> Tuple[Tuple[Tuple[int, ...], float], ...]:
     """The (shape, keep) of every keep-mask of one training discriminator
     call on ``[S, N]`` scenes (the g-step's), in order; a ``meta`` dry
-    run."""
+    run with no group in force."""
     with torch.device("meta"):
         d = TrajectoryDiscriminator(cfg)
     b = _meta_batch(cfg, S, N)
     traj = torch.cat([b["obs"], b["pred"]], dim=2)
     rec = ShapeRecorder()
-    with torch.no_grad(), _mode(True, d):
+    with torch.no_grad(), _mode(True, d), _one_device():
         d(traj, traj, b["valid"], "scan", rec)
     return tuple(rec.asked)
 
@@ -872,12 +890,14 @@ def stack_states(states: Sequence[TrainState], tcfg: TrainConfig
 def unstack_state(st: StackedState, i: int, tcfg: TrainConfig,
                   device: Union[str, torch.device]) -> TrainState:
     """Replica ``i`` of ``st`` as a TrainState of its own on ``device``:
-    copies of its weights, Adam moments and EMA."""
+    copies of its weights, Adam moments and EMA (BatchNorm's buffers, which
+    are never read, at their initial values)."""
     dev = torch.device(device)
     mods = []
     for base, params in ((st.g, st.g_params), (st.d, st.d_params)):
-        m = copy.deepcopy(base).to_empty(device=dev)
-        m.load_state_dict({k: v[i].detach() for k, v in params.items()})
+        m = type(base)(base.cfg).to(dev)
+        m.load_state_dict({**m.state_dict(),
+                           **{k: v[i].detach() for k, v in params.items()}})
         mods.append(m)
     state = train_state_from_modules(*mods, tcfg)
     for opt, stacked, m, params in ((state.g_opt, st.g_opt, mods[0],
@@ -959,21 +979,35 @@ def d_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
                 label: torch.Tensor, impl: str,
                 masks: Optional[List[torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """:func:`d_step` for every replica on one shared batch: ``noise``
+    """:func:`d_step` for every replica on one shared batch: the losses and
+    stacked gradients of :func:`d_gradients_many`, then each replica's clip
+    and one Adam step."""
+    losses, grads = d_gradients_many(st, batch, cfg, tcfg, noise, label,
+                                     impl, masks)
+    losses["norm_d"] = _apply_many(st.d_opt, list(st.d_params.values()),
+                                   grads, tcfg.clipping_threshold_d)
+    return losses
+
+
+def d_gradients_many(st: StackedState, batch: Batch, cfg: ModelConfig,
+                     tcfg: TrainConfig, noise: Optional[torch.Tensor],
+                     label: torch.Tensor, impl: str,
+                     masks: Optional[List[torch.Tensor]] = None):
+    """The d-step's losses ``[N]`` and stacked gradients ``[N, ...]`` (in
+    ``st.d_params`` order) of every replica, nothing updated: ``noise``
     ``[N, S, N, nd]`` (or None), ``label`` ``[N]`` and, with dropout,
-    ``masks`` (each keep-mask of :func:`d_mask_shapes` stacked ``[N, ...]``)
-    are the replicas' draws. The forward runs under vmap; the gradient of
-    the sum of the replicas' losses is each replica's own (they share no
-    parameter)."""
+    ``masks`` (each keep-mask of :func:`d_mask_shapes` stacked ``[N, ...]``;
+    under data parallelism at the global batch's shapes, sliced by
+    :func:`d_loss`) are the replicas' draws. The forward runs under vmap;
+    the gradient of the sum of the replicas' losses is each replica's own
+    (they share no parameter). Under data parallelism the gradients and
+    losses are summed over the ranks in one all-reduce, outside the vmap."""
     loss = replica_map(st, lambda g, d, z, y, ms: d_loss(
         g, d, batch, cfg, tcfg, z, y, impl, _injected(ms)), noise, label,
         masks)
-    params = list(st.d_params.values())
-    grads = torch.autograd.grad(loss.sum(), params)
-    loss = loss.detach()
-    return {"D_data_loss": loss, "D_total_loss": loss,
-            "norm_d": _apply_many(st.d_opt, params, grads,
-                                  tcfg.clipping_threshold_d)}
+    grads = torch.autograd.grad(loss.sum(), list(st.d_params.values()))
+    *grads, loss = all_reduce_grads([*grads, loss.detach()])
+    return {"D_data_loss": loss, "D_total_loss": loss}, grads
 
 
 def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
@@ -982,27 +1016,42 @@ def g_step_many(st: StackedState, batch: Batch, cfg: ModelConfig,
                 sample_masks: Optional[List[torch.Tensor]] = None,
                 d_masks: Optional[List[torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """:func:`g_step` for every replica on one shared batch (``noises``
-    ``[N, best_k, S, N, nd]``, ``label`` ``[N]``; with dropout the
-    per-sample keep-masks ``[N, best_k, ...]`` and D's ``[N, ...]``), the
-    EMA per replica. With dropout each replica's per-sample forward is a
-    vmap over the samples nested in the seed vmap."""
-    variety, adv, total = replica_map(st, lambda g, d, z, y, sm, dm: g_loss(
-        g, d, batch, cfg, tcfg, z, y, impl, sm, _injected(dm)), noises,
-        label, sample_masks, d_masks)
-    params = list(st.g_params.values())
-    grads = torch.autograd.grad(total.sum(), params)
-    losses = {"G_l2_loss_rel": variety.detach(),
-              "G_discriminator_loss": adv.detach(),
-              "G_total_loss": total.detach(),
-              "norm_g": _apply_many(st.g_opt, params, grads,
-                                    tcfg.clipping_threshold_g)}
+    """:func:`g_step` for every replica on one shared batch: the losses and
+    stacked gradients of :func:`g_gradients_many`, each replica's clip and
+    one Adam step, then the EMA per replica."""
+    losses, grads = g_gradients_many(st, batch, cfg, tcfg, noises, label,
+                                     impl, sample_masks, d_masks)
+    losses["norm_g"] = _apply_many(st.g_opt, list(st.g_params.values()),
+                                   grads, tcfg.clipping_threshold_g)
     if st.ema_g is not None and tcfg.g_ema_decay > 0:
         decay = tcfg.g_ema_decay
         with torch.no_grad():
             for name, p in st.g_params.items():
                 st.ema_g[name].mul_(decay).add_(p, alpha=1.0 - decay)
     return losses
+
+
+def g_gradients_many(st: StackedState, batch: Batch, cfg: ModelConfig,
+                     tcfg: TrainConfig, noises: Optional[torch.Tensor],
+                     label: torch.Tensor, impl: str,
+                     sample_masks: Optional[List[torch.Tensor]] = None,
+                     d_masks: Optional[List[torch.Tensor]] = None):
+    """The g-step's losses ``[N]`` and stacked gradients (in
+    ``st.g_params`` order) of every replica, nothing updated: ``noises``
+    ``[N, best_k, S, N, nd]``, ``label`` ``[N]``; with dropout the
+    per-sample keep-masks ``[N, best_k, ...]`` (this rank's scenes) and D's
+    ``[N, ...]`` (at the global batch's shapes, sliced here). With dropout
+    each replica's per-sample forward is a vmap over the samples nested in
+    the seed vmap. Under data parallelism the gradients and losses are
+    summed over the ranks in one all-reduce."""
+    variety, adv, total = replica_map(st, lambda g, d, z, y, sm, dm: g_loss(
+        g, d, batch, cfg, tcfg, z, y, impl, sm,
+        sharded_masks(_injected(dm))), noises, label, sample_masks, d_masks)
+    grads = torch.autograd.grad(total.sum(), list(st.g_params.values()))
+    *grads, variety, adv, total = all_reduce_grads(
+        [*grads, variety.detach(), adv.detach(), total.detach()])
+    return {"G_l2_loss_rel": variety, "G_discriminator_loss": adv,
+            "G_total_loss": total}, grads
 
 
 def replica_draws(kind: str, cfg: ModelConfig, tcfg: TrainConfig, S: int,
@@ -1013,21 +1062,26 @@ def replica_draws(kind: str, cfg: ModelConfig, tcfg: TrainConfig, S: int,
     ``generator``: the noise, the label, then with dropout the keep-masks
     (the d-step's generator leg and D's; the g-step's per-sample masks,
     then D's). ``injected`` holds :func:`train_iterations`' per-step dict;
-    an injected value draws nothing."""
+    an injected value draws nothing. Under data parallelism ``S`` is this
+    rank's scene count and every draw is the global batch's: the noise and
+    the per-sample masks sliced here, as :func:`d_step` / :func:`g_step`
+    slice them; the d-step's and D's keep-masks whole, sliced where the
+    steps use them (:func:`d_loss`, :func:`g_gradients_many`)."""
     masks = {k: injected.pop(k, None)
              for k in ("masks", "sample_masks", "d_masks")}
+    S_all = global_scenes(S)
     if kind == "d":
         out = d_draws(cfg, S, N, generator, device, **injected)
         if _dropout(cfg):
-            out["masks"] = draw_masks(d_mask_shapes(cfg, S, N), generator,
-                                      device, masks["masks"])
+            out["masks"] = draw_masks(d_mask_shapes(cfg, S_all, N),
+                                      generator, device, masks["masks"])
         return out
     out = g_draws(cfg, tcfg, S, N, generator, device, **injected)
     if _dropout(cfg):
         out["sample_masks"] = stacked_sample_masks(
             cfg, tcfg.best_k, S, N, generator, device, masks["sample_masks"])
-        out["d_masks"] = draw_masks(disc_mask_shapes(cfg, S, N), generator,
-                                    device, masks["d_masks"])
+        out["d_masks"] = draw_masks(disc_mask_shapes(cfg, S_all, N),
+                                    generator, device, masks["d_masks"])
     return out
 
 
@@ -1073,19 +1127,21 @@ def check_accuracy_sweep_many(st: StackedState, data: Dict[str, torch.Tensor],
                               ) -> Dict[str, torch.Tensor]:
     """:func:`make_check_accuracy_sweep`'s pass for every replica: the raw
     sums ``[N]`` each, replica i's draws from ``generators[i]`` or
-    ``draws[i]``."""
+    ``draws[i]``. Under data parallelism ``idx`` holds this rank's scenes
+    of each batch, the draws are the global batch's and the sums are
+    summed over the ranks."""
     dev = data["valid"].device
     S, N = idx.shape[1], data["valid"].shape[1]
     acc = None
     for bi, bidx in enumerate(idx):
         per_seed = []
         for i, gen in enumerate(generators):
-            noise, label = (draws[i](bi, S, N) if draws is not None
-                            else (None, None))
+            noise, label = (draws[i](bi, global_scenes(S), N)
+                            if draws is not None else (None, None))
             per_seed.append(d_draws(cfg, S, N, gen, dev, noise, label))
         kw = _stack_draws(per_seed, dev)
         b = gather_batch(data, bidx, cfg.obs_len)
         out = replica_map(st, lambda g, d, z, y: accuracy_sums(
             g, d, b, cfg, z, y, impl), kw["noise"], kw["label"])
         acc = out if acc is None else {k: acc[k] + v for k, v in out.items()}
-    return acc
+    return dict(zip(acc, all_reduce_grads(list(acc.values()))))

@@ -32,7 +32,9 @@ Adam's normalisation turns into steps of up to lr with either sign, lr an
 iteration (0.52 lr after 4 iterations, the worst seen); Adam moments 1e-6
 of their optimizer's largest; only rank 0 writes files. Every weight with
 a real gradient agrees within 1e-7. The same spawn runs the training CLI
-as torchrun starts it; then ``dryrun_data_parallel(2)``.
+as torchrun starts it. ``dryrun_data_parallel(2)`` (stages 1-3 single-seed
+iterations, stage 4 a sweep's) runs in
+tests/test_torch_data_parallel_many.py.
 """
 
 import dataclasses
@@ -313,8 +315,7 @@ def test_dp_train_matches_one_process(tmp_path, monkeypatch):
     """train() with num_devices=2 over 2 buckets, a checkpoint at t=2 and a
     resume to t=4 from rank 0's file, against one process; only rank 0
     writes files. In the same spawn the training CLI as torchrun starts it
-    (``--num_devices 2 --dist_backend gloo``) trains 2 iterations. Then
-    ``dryrun_data_parallel(2)``, ``dryrun_multichip``'s counterpart."""
+    (``--num_devices 2 --dist_backend gloo``) trains 2 iterations."""
     root = tmp_path / "data"
     write_scene_files(str(root / "synth" / "train"), n_files=1, frames=70,
                       max_peds=12, seed=0)
@@ -359,7 +360,6 @@ def test_dp_train_matches_one_process(tmp_path, monkeypatch):
     cli0, cli1 = (r["ckpt"] for r in cli_ranks)
     assert cli0 == cli1 and cli0["counters"]["t"] == 2
     assert all(np.isfinite(v).all() for v in _flat(cli0).values())
-    DP.dryrun_data_parallel(WORLD)
     for r, rank in enumerate(ranks):
         for run, ref in zip(rank["runs"], one):
             got, want = run["ckpt"], ref["ckpt"]
@@ -400,7 +400,8 @@ def test_dp_refusals(case, tmp_path, monkeypatch):
     size (the launch recipe in the message), num_devices=0 on several cards
     among them (every visible card, as JAX's 0; 1 on the CPU); nccl asked for two ranks on
     one card, refused before any process or group is made; train_many
-    with num_devices=2 (the next item of ROADMAP.md's queue 1)."""
+    with num_devices=2 without a group, refused as train() refuses it
+    (the sweep CLI's launch recipe in the message)."""
     cfg = ModelConfig(**O.NARROW)
     tcfg = TrainConfig(**TRAIN, output_dir=str(tmp_path))
     if case == "loop":
@@ -429,8 +430,10 @@ def test_dp_refusals(case, tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="CUDA devices"):
             check_backend("nccl", ["cpu", "cpu"])
     else:
-        with pytest.raises(NotImplementedError,
-                           match="train_many's data-parallel composition"):
+        with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2 "
+                                             r"-m grouptraj_torch\.train\."
+                                             r"cli_many"):
             MULTI.train_many(cfg, dataclasses.replace(tcfg,
                                                       num_devices=WORLD),
                              [5, 6], device="cpu")
+        assert get_dp_group() is None

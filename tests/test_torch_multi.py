@@ -497,8 +497,10 @@ def test_refusals_and_cli(case, data_root, tmp_path):
             MULTI.train_many(CFG, _small(str(tmp_path)), [5, 5],
                              device="cpu")
     elif case == "devices":
-        with pytest.raises(NotImplementedError,
-                           match="train_many's data-parallel composition"):
+        # data-parallel sweeps run on the ranks of a process group
+        # (tests/test_torch_data_parallel_many.py); without one, train()'s
+        # refusal with the launch recipe
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             MULTI.train_many(CFG, _small(str(tmp_path), num_devices=2),
                              SEEDS, device="cpu")
     elif case == "cli":
