@@ -170,7 +170,19 @@ Phases, each of which fails the run on any error:
    serving call and iteration, one step of a 2-seed train_iterations_many,
    each with its bf16-mode launches, its drift from the exact mode and,
    for the per-step paths and the f32 serving call, ms per call in either
-   mode in turns.
+   mode in turns;
+15. wide: K3-K6 at the widths past the register design's (wide_phase, run
+   before bf16's paths): the JAX package's H=128 / D=32 / N=128 scale
+   configuration's shapes (encoders T=8/B=8,192 and T=20/B=16,384, the
+   decoder T=11 at B=16,384 with residuals and at B=163,840 without) and
+   widths between the built ones (H=40, H=100, D=12), each against its
+   plain version, bit for bit on a repeat and on misaligned views, timed
+   beside its bounds and nn.LSTM; that configuration served at k=20 and
+   trained 3 iterations on the three routes in turns against 'scan', with
+   launches (every K3-K6 launch a wide one), ms, peak memory and the busy
+   share of a fused and a pallas iteration; K1 and K2 at its shapes
+   (S=64/N=128/B=8 and 128, S=128/N=128/B=128) against their plain
+   versions.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -212,12 +224,16 @@ SERVE_ATOL = 1e-3            # metres, kernel vs plain pool end to end
 NEAR_TIE_ATOL = 1e-5         # check_kernel(near_ties=True): a near-tie
 # device functions of K1 and K2 (the weight split they share, K1's tile,
 # K2's three passes), K3 and K4 (two), K4's and K6's block-order sum, K5
-# and K6, as a trace names them
+# and K6, and the wide design of K3-K6 (its weight splits, the forward, the
+# backward's recurrence, weight gradients and dxs), as a trace names them
 PORT_KERNELS = ("split_w_kernel", "pool_core_fwd_kernel", "ties_kernel",
                 "tie_grads_kernel", "weight_reduce_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
                 "reduce_partials_kernel", "lstm_proj_fwd_kernel",
-                "lstm_proj_bwd_kernel")
+                "lstm_proj_bwd_kernel", "split_fwd_kernel",
+                "split_bwd_kernel", "lstm_wide_fwd_kernel",
+                "lstm_wide_bwd_kernel", "lstm_wide_dw_kernel",
+                "lstm_wide_dx_kernel")
 # iterations of a training run on each LSTM route
 TRAIN_ITERS = {"scan": 10, "fused": 30, "pallas": 20}
 LSTM_FWD_ATOL = 1e-5         # K3/K5 vs plain: float32 sums of <= 80 products
@@ -242,11 +258,20 @@ def kernel_name(line):
     ``ties_kernel<6,1>`` (NT, bf16 mode), ``lstm_fused_fwd_kernel<32,0,0>``
     (H, WITH_GX, SAVE), ``lstm_fused_bwd_kernel<48,1>`` (H, WITH_GX),
     ``lstm_proj_fwd_kernel<16,48,1>`` (D, H, SAVE) or
-    ``lstm_proj_bwd_kernel<16,48>`` from a line that names a pool kernel's,
-    K3's, K4's, K5's or K6's mangled symbol (ptxas or cuobjdump; the base
-    name alone from a profiler's demangled one); None for other kernels."""
-    m = re.search(r"(lstm_fused_fwd_kernel)(?:ILi(\d+)ELb([01])ELb([01])E)?",
-                  line)
+    ``lstm_proj_bwd_kernel<16,48>``, ``lstm_wide_fwd_kernel<2,1>`` (mode:
+    0 K3 gx, 1 K3 decoder, 2 K5; SAVE), ``lstm_wide_bwd_kernel``,
+    ``lstm_wide_dw_kernel``, ``lstm_wide_dx_kernel`` or the wide design's
+    ``split_fwd_kernel`` / ``split_bwd_kernel`` from a line that names a
+    pool kernel's, K3's, K4's, K5's or K6's mangled symbol (ptxas or
+    cuobjdump; the base name alone from a profiler's demangled one); None
+    for other kernels."""
+    m = re.search(r"(lstm_wide_fwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
+    if m is None:
+        m = re.search(r"(lstm_wide_(?:bwd|dw|dx)_kernel|split_(?:fwd|bwd)"
+                      r"_kernel)", line)
+    if m is None:
+        m = re.search(
+            r"(lstm_fused_fwd_kernel)(?:ILi(\d+)ELb([01])ELb([01])E)?", line)
     if m is None:
         m = re.search(
             r"(lstm_proj_fwd_kernel)(?:ILi(\d+)ELi(\d+)ELb([01])E)?", line)
@@ -269,10 +294,13 @@ def kernel_name(line):
 # libraries whose SASS sass_hmma reads, and the kernels among them that
 # must run on the tensor cores: K1's tile, K2's ties pass, K3-K6
 HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_fwd",
-             "lstm_fused_bwd", "lstm_proj_fwd", "lstm_proj_bwd")
+             "lstm_fused_bwd", "lstm_proj_fwd", "lstm_proj_bwd",
+             "lstm_wide_fwd", "lstm_wide_bwd")
 HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
                 "lstm_fused_fwd_kernel", "lstm_fused_bwd_kernel",
-                "lstm_proj_fwd_kernel", "lstm_proj_bwd_kernel")
+                "lstm_proj_fwd_kernel", "lstm_proj_bwd_kernel",
+                "lstm_wide_fwd_kernel", "lstm_wide_bwd_kernel",
+                "lstm_wide_dw_kernel", "lstm_wide_dx_kernel")
 # K1's and K2's pair tiles, each instantiated in both modes
 BF16_TILES = ("pool_core_fwd_kernel", "ties_kernel")
 
@@ -1215,6 +1243,9 @@ def reset_counts():
                     lstm_fused_bwd, lstm_proj_fwd, lstm_proj_bwd):
         wrapper.launches = 0
     pool_core_fwd.launches_bf16 = pool_core_bwd.launches_bf16 = 0
+    for wrapper in (lstm_fused_fwd, lstm_fused_bwd, lstm_proj_fwd,
+                    lstm_proj_bwd):
+        wrapper.launches_wide = 0
 
 
 def all_counts():
@@ -1315,7 +1346,8 @@ def serve_fused_phase(predictor, batches, noises):
 def profile_phase(run, unit, out_name, wall_ms):
     """torch.profiler over three steady calls of ``run`` (after one
     warm-up): device time by kernel, and the device's busy share of the
-    unprofiled wall time per call (``wall_ms``)."""
+    unprofiled wall time per call (``wall_ms``). -> that share, None where
+    the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()
@@ -1342,7 +1374,7 @@ def profile_phase(run, unit, out_name, wall_ms):
         kinds = sorted({str(e.device_type) for e in events})
         print(f"profile {unit}: no device time in the trace (not "
               f"measured); event device types {kinds}")
-        return
+        return None
     print(f"profile: per {unit} device busy={busy_ms:.3f} ms of "
           f"wall {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
           f"{sum(c for _, _, c in dev) // 3} device activities")
@@ -1356,6 +1388,7 @@ def profile_phase(run, unit, out_name, wall_ms):
           + f" total={sum(own.values()):.4f}ms "
           f"({100 * sum(own.values()) / busy_ms:.1f}% of device busy, "
           f"{100 * sum(own.values()) / wall_ms:.1f}% of wall)")
+    return busy_ms / wall_ms
 
 
 # ----------------------------------------------------------------- eval
@@ -2605,6 +2638,9 @@ class _Recorded:
     launches_bf16 = property(
         lambda self: self.fn.launches_bf16,
         lambda self, v: setattr(self.fn, "launches_bf16", v))
+    launches_wide = property(
+        lambda self: self.fn.launches_wide,
+        lambda self, v: setattr(self.fn, "launches_wide", v))
 
     def __call__(self, *args, **kw):
         self.record(self.fn, args)
@@ -3989,6 +4025,335 @@ def many_dp_phase(rng, smi):
     return paths, timed
 
 
+# ----------------------------------------------------------------- wide
+
+# The JAX package's scale configuration (tools/scale_bench.py's "H=128" and
+# "N=128" rows): every LSTM 128 wide, embedding 32, noise 16, the gat preset
+# otherwise, at N = 128 (synthetic_device_data's scenes, as the scale study
+# draws them), batch 64, best_k 20.
+WIDE_MODEL = dict(encoder_h_dim_g=128, decoder_h_dim_g=128,
+                  encoder_h_dim_d=128, embedding_dim=32, noise_dim=(16,))
+WIDE_N = 128
+WIDE_ITERS = 3               # training iterations a route, from one state
+# K3/K4 at the shapes the scale configuration gives them (timed): name, T,
+# B, H, gx variant, residuals saved, cotangents (dys, dhT, dcT) to K4
+WIDE_LSTM = (
+    ("G_encoder_T8_B8192_H128", 8, 8192, 128, True, True, _ENC),
+    ("D_encoder_T20_B16384_H128", 20, 16384, 128, True, True, _ENC),
+    ("decoder_T11_B16384_H128", 11, 16384, 128, False, True, _DEC),
+    ("decoder_T11_B163840_H128_nograd", 11, 163840, 128, False, False,
+     _DEC))
+# K5/K6 at the encoders' shapes (timed): name, T, B, D, H, residuals saved
+WIDE_PROJ = (
+    ("G_encoder_T8_B8192_D32_H128", 8, 8192, 32, 128, True),
+    ("D_encoder_T20_B16384_D32_H128", 20, 16384, 32, 128, True))
+# widths between the built ones (zero-padded: lstm_plan), small B
+WIDE_ODD_LSTM = (("H40", 5, 70, 40, True), ("H40_decoder", 4, 33, 40, False),
+                 ("H100", 4, 33, 100, True),
+                 ("H100_decoder", 3, 70, 100, False))
+WIDE_ODD_PROJ = (("D12_H100", 4, 33, 12, 100), ("D12_H40", 5, 70, 12, 40))
+# one iteration of the scale configuration: route -> wide launches
+WIDE_PER_ITER = {"fused": {"lstm_fused_fwd_wide": 7,
+                           "lstm_fused_bwd_wide": 4},
+                 "pallas": {"lstm_proj_fwd_wide": 4,
+                            "lstm_proj_bwd_wide": 3}}
+WIDE_PER_CALL = {"fused": {"lstm_fused_fwd_wide": 2},
+                 "pallas": {"lstm_proj_fwd_wide": 1}}
+# the wide backward's kernels (K4's and K6's): recurrence, dW, dxs
+WIDE_BWD_KERNELS = ("lstm_wide_bwd_kernel", "lstm_wide_dw_kernel",
+                    "lstm_wide_dx_kernel")
+
+
+def wide_counts():
+    """K3-K6's launches of the wide design (all_counts counts them too)."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    return {f"{w.__name__}_wide": w.launches_wide
+            for w in (lstm_fused_fwd, lstm_fused_bwd, lstm_proj_fwd,
+                      lstm_proj_bwd)}
+
+
+def _shifted(t):
+    """A copy of t in a view that starts 4 bytes off a 16-byte boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _repeats(label, call, args, shift):
+    """``call(*args)`` twice, bit for bit, and once more with the arguments
+    at the indices ``shift`` as views off a 16-byte boundary (the wrapper
+    copies them), bit for bit with the first."""
+    import torch
+    first, second = call(*args), call(*args)
+    moved = list(args)
+    for i in shift:
+        if moved[i] is not None:
+            moved[i] = _shifted(moved[i])
+    third = call(*moved)
+    torch.cuda.synchronize()
+    for x, y, z in zip(first, second, third):
+        if (x is None) != (y is None) or (x is None) != (z is None):
+            fail(f"{label}: an output is given by one call only")
+        if x is not None and not (torch.equal(x, y) and torch.equal(x, z)):
+            fail(f"{label}: a repeat or a misaligned view changed the bits")
+    print(f"{label}: repeat and misaligned views bit for bit")
+
+
+def _wide_lstm_case(name, gen, T, B, H, with_gx, save, cot, timed):
+    """check_lstm, then K3 and K4 repeated and on misaligned views."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    errs = check_lstm(name, gen, T, B, H, with_gx, save, cot, timed)
+    w, h0, c0, gx, b, cots = lstm_inputs(gen, T, B, H, with_gx)
+    given = [c if use else None for c, use in
+             zip(cots, cot if with_gx else _DEC)]
+    _repeats(f"wide K3 {name}",
+             lambda w, h0, c0, gx, b: lstm_fused_fwd(w, h0, c0, gx=gx, b=b,
+                                                    T=T, save=save),
+             (w, h0, c0, gx, b), (1, 2, 3, 4))
+    if save:
+        ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
+                                             save=True)
+        _repeats(f"wide K4 {name}", lstm_fused_bwd,
+                 (w, h0, c0, ys, gates, cs, *given, with_gx),
+                 (1, 2, 3, 4, 5, 6))
+    return errs
+
+
+def _wide_proj_case(name, gen, T, B, D, H, save, cot, timed):
+    """check_proj, then K5 and K6 repeated and on misaligned views."""
+    import torch
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    errs = check_proj(name, gen, T, B, D, H, save, cot, timed)
+    w_ih, w_hh, b, xs, h0, c0 = proj_inputs(gen, T, B, D, H)
+    _repeats(f"wide K5 {name}",
+             lambda *a: lstm_proj_fwd(*a, save=True),
+             (w_ih, w_hh, b, xs, h0, c0), (2, 3, 4, 5))
+    ys, _, _, gates, cs = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    given = [r(T, B, H) if cot[0] else None, r(B, H) if cot[1] else None,
+             r(B, H) if cot[2] else None]
+    _repeats(f"wide K6 {name}", lstm_proj_bwd,
+             (w_ih, w_hh, xs, h0, c0, ys, gates, cs, *given),
+             (2, 3, 4, 5, 6, 7, 8))
+    return errs
+
+
+def wide_phase(rng, smi):
+    """K3-K6 at every width the JAX kernels take, driven by the JAX
+    package's H=128 / D=32 / N=128 scale configuration (WIDE_MODEL):
+
+    (a) K3/K4 and K5/K6 alone at the shapes that configuration gives them
+        (WIDE_LSTM, WIDE_PROJ) and at widths between the built ones (H=40
+        and H=100, D=12): each against its plain version at check_lstm's /
+        check_proj's tolerances, bit for bit on a repeat and on misaligned
+        views, the full shapes timed beside their bounds; nn.LSTM at D=32,
+        H=128 beside both kernel routes (library_lstm);
+    (b) the configuration's main paths, scan / fused / pallas / pallas /
+        fused / scan in turns, from copies of one live state: one k=20
+        serving call (context + folded decode + copy to the host) with
+        positions against 'scan' within SERVE_ATOL; one iteration's losses
+        and every gradient against 'scan' (TRAIN_LOSS_RTOL,
+        TRAIN_GRAD_RTOL of each tensor's largest entry) and WIDE_ITERS
+        iterations of train_iterations with their losses against 'scan';
+        every count at 0 before a run and read after it (K3-K6 only in
+        their wide design); ms a call and an iteration, peak memory, and
+        the busy share of a fused and a pallas iteration
+        (chiprun_out/profile_train_wide_<route>.txt);
+    (c) K1 and K2 at the shapes (b)'s fused iteration gave them (S64_N128_B8
+        and S128_N128_B128) against their plain versions, timed beside
+        their bounds.
+    Returns (launches by path, K3-K6 timings, library timings, K1/K2
+    timings, largest errors)."""
+    import copy
+    import numpy as np
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    from grouptraj_torch.train.steps import (
+        train_iterations, train_state_from_modules,
+    )
+    from grouptraj_torch.utils import relative_to_abs
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    before = wide_counts()
+    lstm_timed, proj_timed, errs = {}, {}, {"fwd": [], "bwd": [],
+                                            "pfwd": [], "pbwd": []}
+    for name, T, B, H, with_gx, save, cot in WIDE_LSTM:
+        f, b = _wide_lstm_case(name, gen, T, B, H, with_gx, save, cot,
+                               lstm_timed)
+        errs["fwd"].append(f)
+        errs["bwd"].append(b)
+        torch.cuda.empty_cache()
+    for name, T, B, H, with_gx in WIDE_ODD_LSTM:
+        f, b = _wide_lstm_case(f"odd_{name}", gen, T, B, H, with_gx, True,
+                               (True, True, True), None)
+        errs["fwd"].append(f)
+        errs["bwd"].append(b)
+    hT_only = (False, True, False)
+    for name, T, B, D, H, save in WIDE_PROJ:
+        f, b = _wide_proj_case(name, gen, T, B, D, H, save, hT_only,
+                               proj_timed)
+        errs["pfwd"].append(f)
+        errs["pbwd"].append(b)
+        torch.cuda.empty_cache()
+    for name, T, B, D, H in WIDE_ODD_PROJ:
+        f, b = _wide_proj_case(f"odd_{name}", gen, T, B, D, H, True,
+                               (True, True, True), None)
+        errs["pfwd"].append(f)
+        errs["pbwd"].append(b)
+    alone = {k: v - before[k] for k, v in wide_counts().items()}
+    print(f"wide kernels alone: wide launches {json.dumps(alone)}")
+    if min(alone.values()) == 0:
+        fail("wide: a wide shape did not run the wide design")
+    library = {
+        "G_encoder_T8_B8192_D32_H128": library_lstm(
+            gen, "wide G_encoder", 8, 8192, 32, 128),
+        "D_encoder_T20_B16384_D32_H128": library_lstm(
+            gen, "wide D_encoder", 20, 16384, 32, 128)}
+    torch.cuda.empty_cache()
+
+    # (b) the scale configuration on the three routes
+    cfg = dataclasses.replace(ModelConfig(), **WIDE_MODEL)
+    tcfg = dataclasses.replace(TrainConfig(), bf16_nograd=False)
+    S, k = tcfg.batch_size, tcfg.best_k
+    data = synthetic_device_data(256, WIDE_N, seed=5, device="cuda")
+    gen.manual_seed(2)
+    idx = torch.randint(0, 256, (WIDE_ITERS, 2, S), generator=gen,
+                        device="cuda")
+    batch = gather_batch(data, idx[0, 0], cfg.obs_len)
+    state, seed, alive = alive_state(cfg, tcfg, batch, gen)
+    n_par = sum(p.numel() for m in (state.g, state.d)
+                for p in m.parameters())
+    print(f"wide: the scale configuration {json.dumps(WIDE_MODEL)} (gat "
+          f"preset otherwise), {n_par} parameters, S={S} N={WIDE_N}, "
+          f"best_k {k}, float32 no-grad legs; seed {seed} (discriminator "
+          f"scores positive on {100 * alive:.0f}% of the first batch)")
+    z = torch.randn((k, S, WIDE_N, cfg.noise_dim[0]), generator=gen,
+                    device="cuda")
+    draw = dict(noise=torch.randn((S, WIDE_N, cfg.noise_dim[0]),
+                                  generator=gen, device="cuda"),
+                noises=torch.randn((k, S, WIDE_N, cfg.noise_dim[0]),
+                                   generator=gen, device="cuda"), label=0.9)
+
+    @torch.inference_mode()
+    def serve(impl):
+        ctx = state.g.generator_context(batch["obs"], batch["obs_rel"],
+                                        batch["group"], batch["valid"],
+                                        impl=impl)
+        preds = state.g.generator_sample_many(ctx, batch["obs_rel"],
+                                              batch["valid"], k,
+                                              user_noises=z, impl=impl)
+        return relative_to_abs(preds, batch["obs"][None, :, :, -1, :]) \
+            .cpu().numpy()
+
+    def train(impl):
+        run = train_state_from_modules(copy.deepcopy(state.g),
+                                       copy.deepcopy(state.d), tcfg)
+        g = torch.Generator(device="cuda").manual_seed(31)
+        return train_iterations(run, data, idx, cfg, tcfg, g, impl=impl)
+
+    launches, out, ms, peak = {}, {}, {}, {}
+    for impl in ("scan", "fused", "pallas"):
+        for what, fn, per in (("serve", serve, WIDE_PER_CALL),
+                              ("train", train, WIDE_PER_ITER)):
+            fn(impl)                                           # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn(impl)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {**all_counts(), **wide_counts()}
+            n = 1 if what == "serve" else WIDE_ITERS
+            # every K3-K6 launch of the configuration is a wide one
+            want = {key: v * n for key, v in per.get(impl, {}).items()}
+            want.update({key[:-len("_wide")]: v for key, v in want.items()})
+            lstm = {key: v for key, v in counts.items()
+                    if key.startswith("lstm_")}
+            print(f"wide {what} {impl}: launches {json.dumps(counts)}; "
+                  f"{secs * 1e3 / n:.2f} ms a "
+                  f"{'call' if what == 'serve' else 'iteration'}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"{smi}")
+            if lstm != {key: want.get(key, 0) for key in lstm} \
+                    or counts["pool_core_fwd"] == 0 or (
+                        what == "train" and counts["pool_core_bwd"] == 0):
+                fail(f"wide {what} {impl}: LSTM launches {lstm}, expected "
+                     f"{want} and no other, and K1 (and K2) above 0")
+            launches[f"wide_{what}_{impl}"] = counts
+            out[(what, impl)] = res
+            ms[(what, impl)] = [secs * 1e3 / n]
+            peak[(what, impl)] = torch.cuda.max_memory_allocated()
+    rows = batch["valid"].cpu().numpy() > 0
+    ref = out[("serve", "scan")]
+    for impl in ("fused", "pallas"):
+        o = out[("serve", impl)]
+        d = np.abs(o - ref)[:, rows].max()
+        print(f"wide serve {impl} vs scan: max |dpos| = {d:.3e} m "
+              f"(tolerance {SERVE_ATOL} m)")
+        if o.shape != ref.shape or not np.isfinite(o).all() \
+                or not d <= SERVE_ATOL:
+            fail(f"wide serve {impl}: disagrees with scan")
+        for key, v in out[("train", impl)].items():
+            r = out[("train", "scan")][key]
+            rel = ((v - r).abs() / r.abs().clamp_min(1e-12)).max().item()
+            print(f"wide train {impl} vs scan: {key} over {WIDE_ITERS} "
+                  f"iterations {[round(float(x), 6) for x in v]} worst rel "
+                  f"diff {rel:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+            if not (bool(torch.isfinite(v).all()) and rel <= TRAIN_LOSS_RTOL):
+                fail(f"wide train {impl}: {key} disagrees with scan")
+    losses, names, grads = _one_iteration(state, batch, cfg, tcfg, **draw)
+    for impl in ("fused", "pallas"):
+        k_losses, _, k_grads = _one_iteration(state, batch, cfg, tcfg,
+                                              **draw, impl=impl)
+        _loss_report(f"wide train S{S}_N{WIDE_N} {impl} vs scan", k_losses,
+                     losses)
+        _grad_report(f"wide train S{S}_N{WIDE_N} {impl} vs scan", names,
+                     k_grads, grads)
+        del k_grads
+    del grads
+    for impl in ("pallas", "fused", "scan"):          # the second turn
+        for what, fn in (("serve", serve), ("train", train)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(impl)
+            torch.cuda.synchronize()
+            n = 1 if what == "serve" else WIDE_ITERS
+            ms[(what, impl)].append((time.perf_counter() - t0) * 1e3 / n)
+    for (what, impl), v in ms.items():
+        print(f"wide {what} {impl}: {statistics.mean(v):.2f} ms a "
+              f"{'call' if what == 'serve' else 'iteration'} (mean of the "
+              f"two turns {[round(x, 2) for x in v]}), peak "
+              f"{peak[(what, impl)] / 2**30:.2f} GiB")
+    busy = {impl: profile_phase(
+        lambda: train_iterations(
+            train_state_from_modules(copy.deepcopy(state.g),
+                                     copy.deepcopy(state.d), tcfg),
+            data, idx[:1], cfg, tcfg, gen, impl=impl),
+        f"wide training iteration {impl}",
+        f"profile_train_wide_{impl}.txt",
+        statistics.mean(ms[("train", impl)])) for impl in ("fused", "pallas")}
+
+    # (c) K1 and K2 at the shapes of a fused iteration
+    with _pool_calls() as (seen, first):
+        train("fused")
+    torch.cuda.synchronize()
+    print(f"wide: K1/K2 calls of {WIDE_ITERS} fused iterations (kind, R, S, "
+          f"N, B): {sorted(set(seen))}")
+    pool_timed = _hold_pool_shapes("wide", first, rng, 1, smi)
+    print(f"wide phase: {time.perf_counter() - t_phase:.1f} s")
+    paths = {key: v for key, v in launches.items() if "scan" not in key}
+    return paths, lstm_timed, proj_timed, library, pool_timed, {
+        key: max(v) for key, v in errs.items()}, busy, ms, peak
+
+
 def main():
     import numpy as np
     import torch
@@ -4057,6 +4422,8 @@ def main():
     md_launches, md_timed, _ = many_dropout_phase(rng, smi.splitlines()[0])
     dp_launches, dp_timed = dp_phase(rng, smi.splitlines()[0])
     mdp_launches, mdp_timed = many_dp_phase(rng, smi.splitlines()[0])
+    (wide_launches, wide_lstm, wide_proj, wide_library, wide_pool, wide_err,
+     _, _, _) = wide_phase(rng, smi.splitlines()[0])
     bf16_paths = bf16_paths_phase(batches, noises)
 
     # launches: every main path, each driven with the counts at 0 just
@@ -4080,7 +4447,10 @@ def main():
     # the ranks: a 2-seed sweep's iterations without dropout and with
     # dropout1 (K1/K2 at R = 2 on each rank's 32 scenes), train_many on the
     # ranks with a resume and a sweep iteration on nccl at world size 1
-    # (many_dp_phase, summed over the ranks). No
+    # (many_dp_phase, summed over the ranks), and the H=128 / D=32 / N=128
+    # scale configuration's serving call and iterations on the fused and
+    # pallas routes, which run K3-K6 in their wide design only (wide_phase;
+    # the wide entries below count those launches). No
     # single PyTorch call computes K1-K4's functions, so their library_ms
     # is null; the nearest call for K3/K4,
     # torch.nn.LSTM with the input projection on both sides, is under
@@ -4103,7 +4473,7 @@ def main():
              "loop_pallas": loop_launches["pallas"], **preset_launches,
              "train_many": many_launches,
              **{f"options_{k}": v for k, v in option_launches.items()},
-             **md_launches, **dp_launches, **mdp_launches}
+             **md_launches, **dp_launches, **mdp_launches, **wide_launches}
     # K1/K2 at the R = 4 shapes of a 4-seed training iteration, without
     # dropout and with dropout1, at a data-parallel rank's shapes, and at
     # a rank's shapes of a 2-seed sweep over the ranks
@@ -4196,6 +4566,47 @@ def main():
               exact_ms=bf16_timed["bwd"]["S128_N64_B48"]["exact_ms"],
               **tc_more(bf16_timed["bwd"]["S128_N64_B48"], bf16_timed["bwd"],
                         "ties_kernel"))]}
+    # K3-K6 in their wide design (csrc/lstm_wide_*.cu): entries of their
+    # own, timed at the scale configuration's shapes, their launches those
+    # of wide_phase's fused and pallas paths; K1/K2 held at that
+    # configuration's shapes beside them
+    w3, w4 = "decoder_T11_B163840_H128_nograd", "D_encoder_T20_B16384_H128"
+    w56 = "D_encoder_T20_B16384_D32_H128"
+    w_lib = wide_library[w56]
+    wide_shapes = {kind: {tag: t for (k_, tag), t in wide_pool.items()
+                          if k_ == kind} for kind in ("fwd", "bwd")}
+    record["kernels"][0]["shapes_wide"] = wide_shapes["fwd"]
+    record["kernels"][1]["shapes_wide"] = wide_shapes["bwd"]
+    record["kernels"] += [
+        entry("lstm_fused_fwd_wide", "grouptraj_torch/csrc/lstm_wide_fwd.cu",
+              "grouptraj/ops/pallas_fused.py:118", wide_err["fwd"], w3,
+              wide_lstm[w3]["fwd"], by_paths=wide_launches,
+              nearest_library=wide_library,
+              **tc_more(wide_lstm[w3]["fwd"],
+                        {n: t["fwd"] for n, t in wide_lstm.items()},
+                        "lstm_wide_fwd_kernel")),
+        entry("lstm_fused_bwd_wide", "grouptraj_torch/csrc/lstm_wide_bwd.cu",
+              "grouptraj/ops/pallas_fused.py:180", wide_err["bwd"], w4,
+              wide_lstm[w4]["bwd"], by_paths=wide_launches,
+              nearest_library=wide_library,
+              **tc_more(wide_lstm[w4]["bwd"],
+                        {n: t["bwd"] for n, t in wide_lstm.items()
+                         if "bwd" in t}, WIDE_BWD_KERNELS)),
+        entry("lstm_proj_fwd_wide", "grouptraj_torch/csrc/lstm_wide_fwd.cu",
+              "grouptraj/ops/pallas_lstm.py:45", wide_err["pfwd"], w56,
+              wide_proj[w56]["fwd"], by_paths=wide_launches,
+              library_ms=w_lib["library_fwd_train_ms"],
+              **tc_more(wide_proj[w56]["fwd"],
+                        {n: t["fwd"] for n, t in wide_proj.items()},
+                        "lstm_wide_fwd_kernel")),
+        entry("lstm_proj_bwd_wide", "grouptraj_torch/csrc/lstm_wide_bwd.cu",
+              "grouptraj/ops/pallas_lstm.py:71", wide_err["pbwd"], w56,
+              wide_proj[w56]["bwd"], by_paths=wide_launches,
+              library_ms=(w_lib["library_fwd_bwd_ms"]
+                          - w_lib["library_fwd_train_ms"]),
+              **tc_more(wide_proj[w56]["bwd"],
+                        {n: t["bwd"] for n, t in wide_proj.items()
+                         if "bwd" in t}, WIDE_BWD_KERNELS))]
     for kernel in record["kernels"]:
         if kernel["launches"] == 0:
             fail(f"{kernel['name']} was launched on no main path")

@@ -8,8 +8,9 @@
 #include "lstm_fused.cuh"
 
 // Calls CALL with `constexpr int kD` for the input widths the kernels are
-// built for; any other D gives cudaErrorInvalidValue (the wrapper refuses it
-// before it gets here).
+// built for; any other D gives cudaErrorInvalidValue (the wrappers pad a
+// smaller D to the next built one and send a larger one to the wide
+// design, lstm_wide_*.cu: ops/cuda_lstm.py:lstm_plan).
 #define LSTM_PROJ_DISPATCH_D(D_, ...)                     \
   switch (D_) {                                           \
     case 4: { constexpr int kD = 4; __VA_ARGS__; } break;   \

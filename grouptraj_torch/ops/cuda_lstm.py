@@ -25,13 +25,26 @@ and counts the launch (``lstm_fused_fwd.launches``,
 ``lstm_fused_bwd.launches``); for CPU tensors it runs the plain PyTorch
 version in :mod:`grouptraj_torch.ops.lstm`. There is no fallback from a
 kernel to its plain version.
+
+Widths. :func:`lstm_plan` maps the hidden width H (and, for K5/K6 in
+:mod:`grouptraj_torch.ops.cuda_lstm_proj`, the input width D) to the
+build that serves it: the register design (``csrc/lstm_fused_*.cu``,
+``lstm_proj_*.cu``; H in :data:`HIDDEN_SIZES`, D in :data:`INPUT_SIZES`)
+up to H = 64 and D = 16, the wide design (``csrc/lstm_wide_*.cu``; H a
+multiple of 8 up to :data:`MAX_H`, D a multiple of 4 up to :data:`MAX_D`)
+beyond. A width between the built ones runs zero-padded to the next one:
+zero weight rows and columns, zero state and bias. That is exact: a padded
+unit's gates are i = f = o = 1/2 and g = 0, so its c and h stay 0 and it
+feeds nothing, and its gradients are 0; the wrappers slice every output
+back. Past MAX_H or MAX_D the wrappers raise. A launch of the wide design
+also counts in ``<wrapper>.launches_wide``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,7 +54,72 @@ from grouptraj_torch.ops.lstm import (
     _batched, _fused_fwd_plain, _wants_grad, fused_recurrence_bwd_plain,
 )
 
-HIDDEN_SIZES = (8, 16, 32, 48, 64)     # the widths the kernels are built for
+HIDDEN_SIZES = (8, 16, 32, 48, 64)     # H of the register design's builds
+INPUT_SIZES = (4, 8, 16)               # D of the register design's builds
+MAX_H, MAX_D = 128, 64                 # the wide design's limits
+
+
+class LstmPlan(NamedTuple):
+    """The build that serves a width: ``design`` 'register' or 'wide', and
+    the widths ``H`` and ``D`` (0: no input projection) it runs at, each at
+    least the caller's (zero-padded up to it)."""
+    design: str
+    H: int
+    D: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def lstm_plan(H: int, D: int = 0) -> LstmPlan:
+    """The kernel build for hidden width H and input width D (K5/K6; 0 for
+    K3/K4, which take no input projection): the register design at the
+    smallest built H >= H and D >= D where H <= 64 and D <= 16, else the
+    wide design at H and D rounded up to multiples of 8 and 4. Raises
+    ValueError past H = MAX_H or D = MAX_D."""
+    if not 1 <= H <= MAX_H or not 0 <= D <= MAX_D:
+        raise ValueError(f"the LSTM kernels take H in [1, {MAX_H}] and, with "
+                         f"an input projection, D in [1, {MAX_D}], got "
+                         f"H={H}, D={D}")
+    if H <= HIDDEN_SIZES[-1] and D <= INPUT_SIZES[-1]:
+        return LstmPlan("register", min(h for h in HIDDEN_SIZES if h >= H),
+                        min((d for d in INPUT_SIZES if d >= D), default=0)
+                        if D else 0)
+    return LstmPlan("wide", _round_up(H, 8), _round_up(D, 4))
+
+
+def pad_units(t: Optional[torch.Tensor], H: int, Hp: int, gates: bool = False,
+              rows: Optional[int] = None) -> Optional[torch.Tensor]:
+    """``t`` with its last axis (H units, or with ``gates`` the four gates'
+    blocks of H) zero-padded to Hp units, and with ``rows`` its first axis
+    zero-padded to that many rows; None stays None."""
+    if t is None:
+        return None
+    if gates:
+        t = torch.nn.functional.pad(t.unflatten(-1, (4, H)), (0, Hp - H))
+        t = t.flatten(-2)
+    else:
+        t = torch.nn.functional.pad(t, (0, Hp - H))
+    if rows is not None:
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1)
+                                    + (0, rows - t.shape[0]))
+    return t.contiguous()
+
+
+def unpad_units(t: Optional[torch.Tensor], H: int, gates: bool = False,
+                rows: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The inverse of :func:`pad_units`: the first H units (of each gate's
+    block) and the first ``rows`` rows, contiguous."""
+    if t is None:
+        return None
+    if rows is not None:
+        t = t[:rows]
+    if gates:
+        t = t.unflatten(-1, (4, -1))[..., :H].flatten(-2)
+    else:
+        t = t[..., :H]
+    return t.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +131,91 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.lstm_fused_fwd_error_string.argtypes = [i]
     lib.lstm_fused_fwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("lstm_wide_fwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_wide_fwd.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.lstm_wide_fwd.restype = ctypes.c_int
+    lib.lstm_wide_fwd_error_string.argtypes = [i]
+    lib.lstm_wide_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("lstm_wide_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_wide_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    lib.lstm_wide_bwd.restype = ctypes.c_int
+    lib.lstm_wide_bwd_chunks.argtypes = [i] * 5
+    lib.lstm_wide_bwd_chunks.restype = ctypes.c_int
+    lib.lstm_wide_bwd_error_string.argtypes = [i]
+    lib.lstm_wide_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+WIDE_MODES = {"gx": 0, "bias": 1, "proj": 2}    # lstm_wide_fwd's modes
+
+
+def wide_fwd(w_ih, w_hh, pre, xs, h0, c0, T, mode, save):
+    """Launch the wide forward (csrc/lstm_wide_fwd.cu) on checked, 16-byte
+    aligned CUDA tensors at widths it takes: ``mode`` 'gx' (K3, pre = gx),
+    'bias' (K3, pre = b) or 'proj' (K5, pre = b, with w_ih and xs; None
+    otherwise). -> (ys, hT, cT, gates, cs), the residuals None unless
+    ``save``."""
+    B, H = h0.shape
+    D = 0 if xs is None else xs.shape[2]
+    lib = _wide_fwd_lib()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=w_hh.device)
+    ys, hT, cT = new(T, B, H), new(B, H), new(B, H)
+    gates = cs = None
+    if save:
+        gates, cs = new(T, B, 4 * H), new(T, B, H)
+    wf = new((_round_up(D, 8) + H) * 8 * H)
+    err = lib.lstm_wide_fwd(
+        _ptr(w_ih), w_hh.data_ptr(), pre.data_ptr(), _ptr(xs), h0.data_ptr(),
+        c0.data_ptr(), ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+        _ptr(gates), _ptr(cs), wf.data_ptr(), T, B, D, H, WIDE_MODES[mode],
+        _device_index(w_hh),
+        torch.cuda.current_stream(w_hh.device).cuda_stream)
+    if err:
+        raise RuntimeError("lstm_wide_fwd launch failed: "
+                           + lib.lstm_wide_fwd_error_string(err).decode())
+    return ys, hT, cT, gates, cs
+
+
+def wide_bwd(w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT, dz,
+             with_db):
+    """Launch the wide backward (csrc/lstm_wide_bwd.cu) on checked, 16-byte
+    aligned CUDA tensors at widths it takes: K4 (w_ih and xs None) or K6.
+    ``dz`` [T, B, 4H] receives dz (K4's dgx) or is a scratch. -> (dxs or
+    None, dw [Kc, 4H], dh0, dc0): dw's rows are dW_ih (D), zeros up to a
+    multiple of 8, dW_hh (H), then db in the next row with ``with_db``."""
+    T, B, H = ys.shape
+    D = 0 if xs is None else xs.shape[2]
+    lib = _wide_bwd_lib()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=w_hh.device)
+    kc = _round_up(D, 8) + H + (8 if with_db else 0)
+    nch = lib.lstm_wide_bwd_chunks(T, B, D, H, int(with_db))
+    wf, part, dw = new(8 * H * H), new(nch, kc, 4 * H), new(kc, 4 * H)
+    dxs = new(T, B, D) if D else None
+    dh0, dc0 = new(B, H), new(B, H)
+    err = lib.lstm_wide_bwd(
+        _ptr(w_ih), w_hh.data_ptr(), _ptr(xs), h0.data_ptr(), c0.data_ptr(),
+        ys.data_ptr(), gates.data_ptr(), cs.data_ptr(), _ptr(dys), _ptr(dhT),
+        _ptr(dcT), dz.data_ptr(), _ptr(dxs), wf.data_ptr(), part.data_ptr(),
+        dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, D, H,
+        int(with_db), _device_index(w_hh),
+        torch.cuda.current_stream(w_hh.device).cuda_stream)
+    if err:
+        raise RuntimeError("lstm_wide_bwd launch failed: "
+                           + lib.lstm_wide_bwd_error_string(err).decode())
+    return dxs, dw, dh0, dc0
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,12 +248,12 @@ def _check(ref: torch.Tensor, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_sizes(T: int, B: int, H: int, cuda: bool) -> None:
+def _check_sizes(T: int, B: int, H: int, cuda: bool) -> Optional[LstmPlan]:
+    """Raises on sizes the kernels (``cuda``) or the plain version do not
+    take. -> the kernels' plan (:func:`lstm_plan`), None on the CPU."""
     if T < 1 or B < 1:
         raise ValueError(f"T and B must be at least 1, got T={T}, B={B}")
-    if cuda and H not in HIDDEN_SIZES:
-        raise ValueError(f"the whole-loop LSTM kernels are built for H in "
-                         f"{HIDDEN_SIZES}, got H={H}")
+    return lstm_plan(H) if cuda else None
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -132,10 +295,39 @@ def lstm_fused_fwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     B, H = h0.shape
     _check(w, w=(w, (H, 4 * H)), h0=(h0, (B, H)), c0=(c0, (B, H)),
            gx=(gx, (T, B, 4 * H)), b=(b, (4 * H,)))
-    _check_sizes(T, B, H, w.is_cuda)
+    plan = _check_sizes(T, B, H, w.is_cuda)
     if not w.is_cuda:
         return _fused_fwd_plain(w, gx, b, h0, c0, T, save)
-    gx, h0, c0 = (_aligned16(t) for t in (gx, h0, c0))
+    run = functools.partial(_fused_fwd_cuda, design=plan.design)
+    if plan.H != H:                         # zero-padded (lstm_plan)
+        return fused_fwd_padded(run, plan.H, w, h0, c0, gx, b, T, save)
+    return run(w, h0, c0, gx, b, T, save)
+
+
+def fused_fwd_padded(run, Hp, w, h0, c0, gx, b, T, save):
+    """``run(w, h0, c0, gx, b, T, save)`` (K3's launch, or its plain
+    version) at Hp units on zero-padded arguments, its outputs sliced back
+    to H."""
+    H = h0.shape[1]
+    out = run(pad_units(w, H, Hp, gates=True, rows=Hp),
+              *(pad_units(t, H, Hp) for t in (h0, c0)),
+              pad_units(gx, H, Hp, gates=True),
+              pad_units(b, H, Hp, gates=True), T, save)
+    return tuple(unpad_units(t, H, gates=i == 3) for i, t in enumerate(out))
+
+
+def _fused_fwd_cuda(w, h0, c0, gx, b, T, save, *, design):
+    """lstm_fused_fwd's launch on CUDA tensors at a width ``design``
+    takes."""
+    B, H = h0.shape
+    with_gx = gx is not None
+    gx, h0, c0, b = (_aligned16(t) for t in (gx, h0, c0, b))
+    if design == "wide":
+        out = wide_fwd(None, w, gx if with_gx else b, None, h0, c0, T,
+                       "gx" if with_gx else "bias", save)
+        lstm_fused_fwd.launches_wide += 1
+        lstm_fused_fwd.launches += 1
+        return out
     lib = _fwd_lib()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w.device)
@@ -156,6 +348,7 @@ def lstm_fused_fwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
 
 
 lstm_fused_fwd.launches = 0
+lstm_fused_fwd.launches_wide = 0
 
 
 def lstm_fused_bwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
@@ -176,17 +369,54 @@ def lstm_fused_bwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
            ys=(ys, (T, B, H)), gates=(gates, (T, B, 4 * H)),
            cs=(cs, (T, B, H)), dys=(dys, (T, B, H)), dhT=(dhT, (B, H)),
            dcT=(dcT, (B, H)))
-    _check_sizes(T, B, H, w.is_cuda)
+    plan = _check_sizes(T, B, H, w.is_cuda)
     if not w.is_cuda:
         return fused_recurrence_bwd_plain(w, h0, c0, ys, gates, cs, dys, dhT,
                                           dcT, with_gx)
-    # the kernel copies these by cp.async, 16 bytes at a time
+    run = functools.partial(_fused_bwd_cuda, design=plan.design)
+    if plan.H != H:                         # zero-padded (lstm_plan)
+        return fused_bwd_padded(run, plan.H, w, h0, c0, ys, gates, cs, dys,
+                                dhT, dcT, with_gx)
+    return run(w, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx)
+
+
+def fused_bwd_padded(run, Hp, w, h0, c0, ys, gates, cs, dys, dhT, dcT,
+                     with_gx):
+    """``run(w, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx)`` (K4's
+    launch, or its plain version) at Hp units on zero-padded arguments, its
+    outputs sliced back to H."""
+    H = h0.shape[1]
+    dgx, dw, db, dh0, dc0 = run(
+        pad_units(w, H, Hp, gates=True, rows=Hp),
+        *(pad_units(t, H, Hp) for t in (h0, c0, ys)),
+        pad_units(gates, H, Hp, gates=True),
+        *(pad_units(t, H, Hp) for t in (cs, dys, dhT, dcT)), with_gx)
+    return (unpad_units(dgx, H, gates=True),
+            unpad_units(dw, H, gates=True, rows=H),
+            unpad_units(db, H, gates=True), unpad_units(dh0, H),
+            unpad_units(dc0, H))
+
+
+def _fused_bwd_cuda(w, h0, c0, ys, gates, cs, dys, dhT, dcT, with_gx, *,
+                    design):
+    """lstm_fused_bwd's launch on CUDA tensors at a width ``design``
+    takes."""
+    T, B, H = ys.shape
+    # the kernels copy these by cp.async, 8 or 16 bytes at a time
     h0, c0, ys, gates, cs, dys = (
         _aligned16(t) for t in (h0, c0, ys, gates, cs, dys))
-    lib = _bwd_lib()
-    nb = -(-B // lib.lstm_fused_bwd_rows_per_block())
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w.device)
+    if design == "wide":
+        dz = new(T, B, 4 * H)               # dgx, or a scratch
+        _, dw, dh0, dc0 = wide_bwd(None, w, None, h0, c0, ys, gates, cs, dys,
+                                   dhT, dcT, dz, with_db=not with_gx)
+        lstm_fused_bwd.launches_wide += 1
+        lstm_fused_bwd.launches += 1
+        return (dz if with_gx else None, dw[:H],
+                None if with_gx else dw[H], dh0, dc0)
+    lib = _bwd_lib()
+    nb = -(-B // lib.lstm_fused_bwd_rows_per_block())
     dw, dw_part = new(H, 4 * H), new(nb, H, 4 * H)
     dh0, dc0 = new(B, H), new(B, H)
     dgx = db = db_part = None
@@ -208,6 +438,7 @@ def lstm_fused_bwd(w: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
 
 
 lstm_fused_bwd.launches = 0
+lstm_fused_bwd.launches_wide = 0
 
 
 def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -36,14 +36,13 @@ from torch.autograd.function import once_differentiable
 
 from grouptraj_torch.ops import _build
 from grouptraj_torch.ops.cuda_lstm import (
-    HIDDEN_SIZES, _aligned16, _check, _contiguous, _device_index, _f32, _ptr,
-    fold_rows, unfold_rows,
+    INPUT_SIZES, LstmPlan, _aligned16, _check, _contiguous, _device_index,
+    _f32, _ptr, _round_up, fold_rows, lstm_plan, pad_units, unfold_rows,
+    unpad_units, wide_bwd, wide_fwd,
 )
 from grouptraj_torch.ops.lstm import (
     _batched, _wants_grad, lstm_proj_bwd_plain, lstm_proj_fwd_plain,
 )
-
-INPUT_SIZES = (4, 8, 16)      # the input widths D the kernels are built for
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,13 +69,21 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_sizes(T: int, B: int, D: int, H: int, cuda: bool) -> None:
-    if T < 1 or B < 1:
-        raise ValueError(f"T and B must be at least 1, got T={T}, B={B}")
-    if cuda and (D not in INPUT_SIZES or H not in HIDDEN_SIZES):
-        raise ValueError(f"the projection-in-kernel LSTM kernels are built "
-                         f"for D in {INPUT_SIZES} and H in {HIDDEN_SIZES}, "
-                         f"got D={D}, H={H}")
+def _check_sizes(T: int, B: int, D: int, H: int, cuda: bool
+                 ) -> Optional[LstmPlan]:
+    """Raises on sizes the kernels (``cuda``) or the plain version do not
+    take. -> the kernels' plan (``cuda_lstm.lstm_plan``), None on the
+    CPU."""
+    if T < 1 or B < 1 or D < 1:
+        raise ValueError(f"T, B and D must be at least 1, got T={T}, B={B}, "
+                         f"D={D}")
+    return lstm_plan(H, D) if cuda else None
+
+
+def _pad_weights(w_ih, w_hh, D, H, plan):
+    """w_ih, w_hh zero-padded to the plan's widths (lstm_plan)."""
+    return (pad_units(w_ih, H, plan.H, gates=True, rows=plan.D),
+            pad_units(w_hh, H, plan.H, gates=True, rows=plan.H))
 
 
 def _sizes(xs: torch.Tensor, w_hh: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -100,11 +107,36 @@ def lstm_proj_fwd(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
     _check(w_hh, w_ih=(w_ih, (D, 4 * H)), w_hh=(w_hh, (H, 4 * H)),
            b=(b, (4 * H,)), xs=(xs, (T, B, D)), h0=(h0, (B, H)),
            c0=(c0, (B, H)))
-    _check_sizes(T, B, D, H, w_hh.is_cuda)
+    plan = _check_sizes(T, B, D, H, w_hh.is_cuda)
     if not w_hh.is_cuda:
         return lstm_proj_fwd_plain(w_ih, w_hh, b, xs, h0, c0, save)
-    # the kernel copies xs by cp.async, 16 bytes at a time
-    xs, h0, c0 = (_aligned16(t) for t in (xs, h0, c0))
+    run = functools.partial(_proj_fwd_cuda, design=plan.design)
+    if (plan.D, plan.H) != (D, H):          # zero-padded (lstm_plan)
+        return proj_fwd_padded(run, plan, w_ih, w_hh, b, xs, h0, c0, save)
+    return run(w_ih, w_hh, b, xs, h0, c0, save)
+
+
+def proj_fwd_padded(run, plan, w_ih, w_hh, b, xs, h0, c0, save):
+    """``run(w_ih, w_hh, b, xs, h0, c0, save)`` (K5's launch, or its plain
+    version) at the plan's widths on zero-padded arguments, its outputs
+    sliced back."""
+    D, H = xs.shape[2], w_hh.shape[0]
+    out = run(*_pad_weights(w_ih, w_hh, D, H, plan),
+              pad_units(b, H, plan.H, gates=True), pad_units(xs, D, plan.D),
+              *(pad_units(t, H, plan.H) for t in (h0, c0)), save)
+    return tuple(unpad_units(t, H, gates=i == 3) for i, t in enumerate(out))
+
+
+def _proj_fwd_cuda(w_ih, w_hh, b, xs, h0, c0, save, *, design):
+    """lstm_proj_fwd's launch on CUDA tensors at widths ``design`` takes."""
+    T, B, D, H = _sizes(xs, w_hh)
+    # the kernels copy xs by cp.async, 16 bytes at a time
+    xs, h0, c0, b = (_aligned16(t) for t in (xs, h0, c0, b))
+    if design == "wide":
+        out = wide_fwd(w_ih, w_hh, b, xs, h0, c0, T, "proj", save)
+        lstm_proj_fwd.launches_wide += 1
+        lstm_proj_fwd.launches += 1
+        return out
     lib = _fwd_lib()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w_hh.device)
@@ -125,6 +157,7 @@ def lstm_proj_fwd(w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
 
 
 lstm_proj_fwd.launches = 0
+lstm_proj_fwd.launches_wide = 0
 
 
 def lstm_proj_bwd(w_ih: torch.Tensor, w_hh: torch.Tensor, xs: torch.Tensor,
@@ -142,17 +175,52 @@ def lstm_proj_bwd(w_ih: torch.Tensor, w_hh: torch.Tensor, xs: torch.Tensor,
            ys=(ys, (T, B, H)), gates=(gates, (T, B, 4 * H)),
            cs=(cs, (T, B, H)), dys=(dys, (T, B, H)), dhT=(dhT, (B, H)),
            dcT=(dcT, (B, H)))
-    _check_sizes(T, B, D, H, w_hh.is_cuda)
+    plan = _check_sizes(T, B, D, H, w_hh.is_cuda)
     if not w_hh.is_cuda:
         return lstm_proj_bwd_plain(w_ih, w_hh, xs, h0, c0, ys, gates, cs,
                                    dys, dhT, dcT)
-    # the kernel copies these by cp.async, 16 bytes at a time
+    run = functools.partial(_proj_bwd_cuda, design=plan.design)
+    if (plan.D, plan.H) != (D, H):          # zero-padded (lstm_plan)
+        return proj_bwd_padded(run, plan, w_ih, w_hh, xs, h0, c0, ys, gates,
+                               cs, dys, dhT, dcT)
+    return run(w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT)
+
+
+def proj_bwd_padded(run, plan, w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys,
+                    dhT, dcT):
+    """``run(w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT)`` (K6's
+    launch, or its plain version) at the plan's widths on zero-padded
+    arguments, its outputs sliced back."""
+    D, H, Hp = xs.shape[2], w_hh.shape[0], plan.H
+    dxs, dw_ih, dw_hh, db, dh0, dc0 = run(
+        *_pad_weights(w_ih, w_hh, D, H, plan), pad_units(xs, D, plan.D),
+        *(pad_units(t, H, Hp) for t in (h0, c0, ys)),
+        pad_units(gates, H, Hp, gates=True),
+        *(pad_units(t, H, Hp) for t in (cs, dys, dhT, dcT)))
+    return (unpad_units(dxs, D), unpad_units(dw_ih, H, True, rows=D),
+            unpad_units(dw_hh, H, True, rows=H), unpad_units(db, H, True),
+            unpad_units(dh0, H), unpad_units(dc0, H))
+
+
+def _proj_bwd_cuda(w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT, *,
+                   design):
+    """lstm_proj_bwd's launch on CUDA tensors at widths ``design`` takes."""
+    T, B, D, H = _sizes(xs, w_hh)
+    # the kernels copy these by cp.async, 8 or 16 bytes at a time
     xs, h0, c0, ys, gates, cs, dys = (
         _aligned16(t) for t in (xs, h0, c0, ys, gates, cs, dys))
-    lib = _bwd_lib()
-    nb = -(-B // lib.lstm_proj_bwd_rows_per_block())
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=w_hh.device)
+    if design == "wide":
+        dz = new(T, B, 4 * H)               # a scratch
+        dxs, dw, dh0, dc0 = wide_bwd(w_ih, w_hh, xs, h0, c0, ys, gates, cs,
+                                     dys, dhT, dcT, dz, with_db=True)
+        lstm_proj_bwd.launches_wide += 1
+        lstm_proj_bwd.launches += 1
+        d8 = _round_up(D, 8)
+        return dxs, dw[:D], dw[d8:d8 + H], dw[d8 + H], dh0, dc0
+    lib = _bwd_lib()
+    nb = -(-B // lib.lstm_proj_bwd_rows_per_block())
     # the weight gradients of one block side by side: dw_ih, dw_hh, db
     n = (D + H + 1) * 4 * H
     dw, part = new(n), new(nb, n)
@@ -172,6 +240,7 @@ def lstm_proj_bwd(w_ih: torch.Tensor, w_hh: torch.Tensor, xs: torch.Tensor,
 
 
 lstm_proj_bwd.launches = 0
+lstm_proj_bwd.launches_wide = 0
 
 
 class _LstmProj(torch.autograd.Function):

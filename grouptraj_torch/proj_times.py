@@ -8,6 +8,7 @@ can be compared on one card in one run:
     python3 grouptraj_torch/proj_times.py                  # this checkout
     python3 grouptraj_torch/proj_times.py --root OTHER     # another one
     python3 grouptraj_torch/proj_times.py --kernel K5      # K5 only
+    python3 grouptraj_torch/proj_times.py --shapes wide    # H = 128 shapes
 
 ``--root`` is the directory that holds the other checkout's
 ``grouptraj_torch/`` (its kernels are built there); the inputs and the
@@ -18,8 +19,10 @@ K4 at those of them that save residuals: a non-zero initial state, K3's
 residuals, a cotangent on hT only for the encoders and on ys for the
 decoder) and check_proj (K5 at its four main shapes, ``PROJ_MAIN``, with
 or without residuals as the main paths save them; K6 at those that save
-them: K5's residuals, a cotangent on hT only) make them. Per shape it
-prints one JSON line:
+them: K5's residuals, a cotangent on hT only) make them. With ``--shapes
+wide`` the shapes are chip_smoke.py's ``WIDE_LSTM`` and ``WIDE_PROJ`` (the
+H=128 / D=32 scale configuration's, which run the wide design,
+csrc/lstm_wide_*.cu). Per shape it prints one JSON line:
 
 - ``ms``: chip_smoke.py's ``time_ms`` (median of 20 single-call CUDA-event
   times, each call queued behind a ~1 ms sleep kernel, so the events hold
@@ -41,24 +44,25 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def k3_calls(cs, seed):
-    """(shape name, one K3 call) at each of chip_smoke's LSTM_MAIN."""
+def k3_calls(cs, seed, shapes):
+    """(shape name, one K3 call) at each of ``shapes`` (chip_smoke's
+    LSTM_MAIN or WIDE_LSTM)."""
     import torch
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, T, B, H, with_gx, save, _ in cs.LSTM_MAIN:
+    for name, T, B, H, with_gx, save, _ in shapes:
         w, h0, c0, gx, b, _ = cs.lstm_inputs(gen, T, B, H, with_gx)
         yield name, lambda: lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
                                            save=save)
 
 
-def k4_calls(cs, seed):
-    """(shape name, one K4 call) at each of chip_smoke's LSTM_MAIN that
-    saves residuals."""
+def k4_calls(cs, seed, shapes):
+    """(shape name, one K4 call) at each of ``shapes`` that saves
+    residuals."""
     import torch
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, T, B, H, with_gx, save, cot in cs.LSTM_MAIN:
+    for name, T, B, H, with_gx, save, cot in shapes:
         if not save:
             continue
         w, h0, c0, gx, b, cots = cs.lstm_inputs(gen, T, B, H, with_gx)
@@ -69,23 +73,24 @@ def k4_calls(cs, seed):
         yield name, lambda: lstm_fused_bwd(*bargs)
 
 
-def k5_calls(cs, seed):
-    """(shape name, one K5 call) at each of chip_smoke's PROJ_MAIN."""
+def k5_calls(cs, seed, shapes):
+    """(shape name, one K5 call) at each of ``shapes`` (chip_smoke's
+    PROJ_MAIN or WIDE_PROJ)."""
     import torch
     from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, T, B, D, H, save in cs.PROJ_MAIN:
+    for name, T, B, D, H, save in shapes:
         args = cs.proj_inputs(gen, T, B, D, H)
         yield name, lambda: lstm_proj_fwd(*args, save=save)
 
 
-def k6_calls(cs, seed):
-    """(shape name, one K6 call) at each of chip_smoke's PROJ_MAIN that
-    saves residuals."""
+def k6_calls(cs, seed, shapes):
+    """(shape name, one K6 call) at each of ``shapes`` that saves
+    residuals."""
     import torch
     from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name, T, B, D, H, save in cs.PROJ_MAIN:
+    for name, T, B, D, H, save in shapes:
         if not save:
             continue
         w_ih, w_hh, b, xs, h0, c0 = cs.proj_inputs(gen, T, B, D, H)
@@ -102,6 +107,9 @@ def main():
                     help="checkout whose grouptraj_torch is timed")
     ap.add_argument("--kernel", choices=("K3", "K4", "K5", "K6", "all"),
                     default="all")
+    ap.add_argument("--shapes", choices=("main", "wide"), default="main",
+                    help="chip_smoke's LSTM_MAIN / PROJ_MAIN, or WIDE_LSTM "
+                         "/ WIDE_PROJ")
     ap.add_argument("--seed", type=int, default=None,
                     help="input seed (default: chip_smoke's, 7 for K3 and "
                          "K4 and 11 for K5 and K6)")
@@ -118,19 +126,16 @@ def main():
     import grouptraj_torch
     print(f"proj_times: timing {os.path.dirname(grouptraj_torch.__file__)}")
 
+    lstm, proj = ((cs.LSTM_MAIN, cs.PROJ_MAIN) if args.shapes == "main"
+                  else (cs.WIDE_LSTM, cs.WIDE_PROJ))
     kernels = []
-    if args.kernel in ("K3", "all"):
-        kernels.append(("K3", k3_calls(cs, 7 if args.seed is None
-                                        else args.seed)))
-    if args.kernel in ("K4", "all"):
-        kernels.append(("K4", k4_calls(cs, 7 if args.seed is None
-                                        else args.seed)))
-    if args.kernel in ("K5", "all"):
-        kernels.append(("K5", k5_calls(cs, 11 if args.seed is None
-                                        else args.seed)))
-    if args.kernel in ("K6", "all"):
-        kernels.append(("K6", k6_calls(cs, 11 if args.seed is None
-                                        else args.seed)))
+    for kernel, calls, shapes, seed in (("K3", k3_calls, lstm, 7),
+                                        ("K4", k4_calls, lstm, 7),
+                                        ("K5", k5_calls, proj, 11),
+                                        ("K6", k6_calls, proj, 11)):
+        if args.kernel in (kernel, "all"):
+            kernels.append((kernel, calls(
+                cs, seed if args.seed is None else args.seed, shapes)))
     for kernel, calls in kernels:
         for name, run in calls:
             ms = cs.time_ms(run)

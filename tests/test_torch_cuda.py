@@ -21,7 +21,11 @@ versions, and a 2-seed ``train_many`` through a save and a resume; K1 and
 K2 in their bf16 mode (``grouptraj_torch.ops.precision``) against their
 plain versions in that mode, bit for bit on quantized inputs, and a
 training iteration and a per-step serving call under the "default"
-setting launching only the bf16 mode.
+setting launching only the bf16 mode; K3-K6 at widths past the register
+design's (H = 100 and 128, D = 32 and 64: csrc/lstm_wide_*.cu) and
+between its built widths (H = 40, D = 12: zero-padded) against their plain
+versions, and the wide design bit for bit on a repeat and on misaligned
+views.
 Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
@@ -34,7 +38,7 @@ order); ``cnt`` exact (ties come from equal inputs); positions 1e-3 m
 da/du 1e-5 and dW2/db2 1e-4 relative to the largest reference entry, given
 the kernel's own tie selection (see chip_smoke.py:check_bwd for why); the
 training iteration's losses 1e-4 relative; K3's outputs 1e-5 absolute and
-K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 48
+K4's gradients 1e-4 of each tensor's largest entry (float32 sums of H ≤ 128
 products in another order, accurate activations on both sides), and the same
 for K5 and K6. In the bf16 mode pooled and K2's four tensors 1e-5 of the
 reference's largest entry (the same exact bfloat16 products summed in
@@ -214,10 +218,16 @@ def test_training_iteration_goes_through_both_kernels(cuda):
 
 # ------------------------------------------------ K3 / K4, the fused LSTM
 
+def _weight_scale(H):
+    """0.3, and past H = 64 0.3 sqrt(64 / H): gate sums of about the same
+    size at every width (the models' init is 1/sqrt(H))."""
+    return 0.3 * min(1.0, (64 / H) ** 0.5)
+
+
 def _lstm_case(cuda, T, B, H, with_gx, seed):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)
-    w, h0, c0 = r(H, 4 * H) * 0.3, r(B, H), r(B, H)
+    w, h0, c0 = r(H, 4 * H) * _weight_scale(H), r(B, H), r(B, H)
     gx = r(T, B, 4 * H) if with_gx else None
     b = None if with_gx else r(4 * H) * 0.1
     return w, h0, c0, gx, b, (r(T, B, H), r(B, H), r(B, H))
@@ -226,7 +236,8 @@ def _lstm_case(cuda, T, B, H, with_gx, seed):
 @pytest.mark.parametrize("T,B,H,with_gx", [
     (8, 100, 32, True), (5, 9, 8, True), (20, 40, 48, True),
     (11, 70, 32, False), (7, 9, 16, False), (1, 1, 32, True),
-    (3, 33, 64, False)])
+    (3, 33, 64, False), (6, 130, 128, True), (5, 65, 100, False),
+    (4, 33, 40, True)])
 def test_fused_forward_kernel_matches_plain(cuda, T, B, H, with_gx):
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd
     from grouptraj_torch.ops.lstm import _fused_fwd_plain
@@ -285,7 +296,8 @@ def test_fused_forward_takes_misaligned_views(cuda):
     (8, 50, 32, True), (6, 16, 16, True), (20, 40, 48, True),
     (11, 24, 32, False), (7, 9, 8, False), (1, 1, 48, True),
     (20, 8192, 48, True), (11, 8192, 32, False), (3, 4097, 8, True),
-    (4, 40, 64, True), (3, 33, 64, False)])
+    (4, 40, 64, True), (3, 33, 64, False), (6, 130, 128, True),
+    (5, 65, 100, False), (4, 33, 40, False)])
 def test_fused_backward_kernel_matches_plain(cuda, T, B, H, with_gx):
     from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
     from grouptraj_torch.ops.lstm import fused_recurrence_bwd_plain
@@ -363,11 +375,11 @@ def test_fused_functions_differentiate_through_the_kernels(cuda):
     ref = torch.autograd.grad((ys ** 2).sum() + (hT * cT).sum(), ref_leaves)
     for x, y in zip(got, ref):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
-    with pytest.raises(ValueError):
-        CL.lstm_fused_fwd(torch.zeros(12, 48, device=cuda),
-                          torch.zeros(3, 12, device=cuda),
-                          torch.zeros(3, 12, device=cuda),
-                          b=torch.zeros(48, device=cuda), T=2)
+    with pytest.raises(ValueError):                # H past the kernels'
+        CL.lstm_fused_fwd(torch.zeros(129, 516, device=cuda),
+                          torch.zeros(3, 129, device=cuda),
+                          torch.zeros(3, 129, device=cuda),
+                          b=torch.zeros(516, device=cuda), T=2)
 
 
 def test_fused_training_iteration_matches_scan(cuda):
@@ -406,7 +418,8 @@ def test_fused_training_iteration_matches_scan(cuda):
 def _proj_case(cuda, T, B, D, H, seed):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)
-    w_ih, w_hh, b = r(D, 4 * H) * 0.3, r(H, 4 * H) * 0.3, r(4 * H) * 0.1
+    ws = _weight_scale(H)
+    w_ih, w_hh, b = r(D, 4 * H) * ws, r(H, 4 * H) * ws, r(4 * H) * 0.1
     return w_ih, w_hh, b, r(T, B, D), r(B, H), r(B, H), (r(T, B, H),
                                                           r(B, H), r(B, H))
 
@@ -414,7 +427,8 @@ def _proj_case(cuda, T, B, D, H, seed):
 @pytest.mark.parametrize("T,B,D,H", [(8, 100, 16, 32), (20, 70, 16, 48),
                                      (5, 9, 4, 8), (6, 40, 8, 64),
                                      (20, 8192, 16, 48), (3, 4097, 4, 8),
-                                     (4, 33, 16, 64)])
+                                     (4, 33, 16, 64), (5, 70, 32, 128),
+                                     (4, 33, 12, 100), (3, 17, 64, 64)])
 def test_proj_kernels_match_plain(cuda, T, B, D, H):
     """K5 with and without residuals, then K6 on K5's residuals with all
     cotangents and with only dhT, against their plain versions."""
@@ -486,6 +500,51 @@ def test_proj_backward_repeats_bit_for_bit(cuda):
     for x, y in zip(first, second):
         assert torch.equal(x, y)
     assert all(x.abs().max() > 0 for x in first)
+
+
+def test_wide_kernels_repeat_bit_for_bit_and_take_misaligned_views(cuda):
+    """K3-K6 in their wide design (H = 128, D = 32; csrc/lstm_wide_*.cu):
+    every launch counted as a wide one, two calls on the same inputs give
+    the same bits (no float atomics; the weight gradients' partials summed
+    in chunk order), and views off a 16-byte boundary (the wrappers copy
+    them) give the same bits again."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+
+    def same(call, args, shift):
+        first, second = call(*args), call(*args)
+        moved = [_shifted(a) if i in shift and a is not None else a
+                 for i, a in enumerate(args)]
+        third = call(*moved)
+        for x, y, z in zip(first, second, third):
+            assert (x is None) == (y is None) == (z is None)
+            if x is not None:
+                assert torch.equal(x, y) and torch.equal(x, z)
+                assert x.abs().max() > 0
+        return first
+
+    T, B, H, D = 7, 4097, 128, 32
+    wide = [f.launches_wide for f in (lstm_fused_fwd, lstm_fused_bwd,
+                                      lstm_proj_fwd, lstm_proj_bwd)]
+    for with_gx in (True, False):
+        w, h0, c0, gx, b, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H,
+                                                       with_gx, seed=9)
+        ys, _, _, gates, cs = same(
+            lambda w, h0, c0, gx, b: lstm_fused_fwd(w, h0, c0, gx=gx, b=b,
+                                                    T=T, save=True),
+            (w, h0, c0, gx, b), (1, 2, 3, 4))
+        cot = (dys, dhT, dcT) if with_gx else (dys, None, None)
+        same(lstm_fused_bwd, (w, h0, c0, ys, gates, cs, *cot, with_gx),
+             (1, 2, 3, 4, 5, 6))
+    w_ih, w_hh, b, xs, h0, c0, (dys, dhT, dcT) = _proj_case(cuda, T, B, D, H,
+                                                            seed=10)
+    ys, _, _, gates, cs = same(lambda *a: lstm_proj_fwd(*a, save=True),
+                               (w_ih, w_hh, b, xs, h0, c0), (2, 3, 4, 5))
+    same(lstm_proj_bwd, (w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT,
+                         dcT), (2, 3, 4, 5, 6, 7, 8))
+    counts = [f.launches_wide - n for f, n in zip(
+        (lstm_fused_fwd, lstm_fused_bwd, lstm_proj_fwd, lstm_proj_bwd), wide)]
+    assert counts == [6, 6, 3, 3]
 
 
 def test_pallas_training_iteration_matches_scan(cuda):

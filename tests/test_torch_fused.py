@@ -222,8 +222,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         CL.lstm_fused_fwd(w.t(), h1, c1, b=b, T=3)     # shape / contiguity
     with pytest.raises(ValueError):
-        CL._check_sizes(3, 4, 12, cuda=True)           # H the kernels lack
-    CL._check_sizes(3, 4, 12, cuda=False)          # the plain version takes it
+        CL._check_sizes(3, 4, 129, cuda=True)          # H past the kernels'
+    CL._check_sizes(3, 4, 129, cuda=False)         # the plain version takes it
 
 
 @pytest.mark.parametrize("impl", ["scan", "fused"])

@@ -205,7 +205,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          xs.transpose(0, 1).contiguous().transpose(0, 1),
                          h0, c0)                             # not contiguous
     with pytest.raises(ValueError):
-        CP._check_sizes(3, 4, 2, 32, cuda=True)          # D the kernels lack
+        CP._check_sizes(3, 4, 65, 32, cuda=True)         # D past the kernels'
     with pytest.raises(ValueError):
-        CP._check_sizes(3, 4, 16, 12, cuda=True)         # H the kernels lack
-    CP._check_sizes(3, 4, 2, 12, cuda=False)     # the plain version takes it
+        CP._check_sizes(3, 4, 16, 129, cuda=True)        # H past the kernels'
+    CP._check_sizes(3, 4, 65, 129, cuda=False)   # the plain version takes it
