@@ -26,10 +26,14 @@
 // the gate math, c and the residual stores run from registers, as in K3. Per
 // step, z = [x_t | h_{t-1}] · [W_ih ; W_hh] from zero, k ascending (x first,
 // then h: the JAX kernels' order), as mma.sync m16n8k8 TF32 with float32
-// accumulate in the 3xTF32 split (lo_a hi_W + hi_a lo_W + hi_a hi_W); then
-// + gx_t or + b. Each k-step a warp reads its four B fragments (one float4
-// a lane each) straight from L2 and uses each on the four m-tiles; the A
-// fragments come from shared memory and are split as they are read. h_t is
+// accumulate in the 3xTF32 split (lo_a hi_W + hi_a lo_W + hi_a hi_W), each
+// k-step's products summed by the tensor cores from zero and added to z in
+// float32: the tensor cores truncate as they accumulate, and one
+// accumulator over all D + H products (192 at D = 64, H = 128) ended 3-4x
+// further from the exact answer than float32 does; then + gx_t or + b.
+// Each k-step a warp reads its four B fragments (one float4 a lane each)
+// straight from L2 and uses each on the four m-tiles; the A fragments come
+// from shared memory and are split as they are read. h_t is
 // written raw into a double-buffered tile (rows of 8 mod 32 floats); x_t
 // (K5) arrives by cp.async into a ring of three steps; gx_t (K3) is copied
 // by each lane into its own shared slots by 8-byte cp.async at the top of
@@ -178,9 +182,12 @@ lstm_wide_fwd_kernel(const float4* __restrict__ wf,
         split(xv, ah, al);
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          mma_tf32(acc[m][g], al, bq[g].x, bq[g].y);
-          mma_tf32(acc[m][g], ah, bq[g].z, bq[g].w);
-          mma_tf32(acc[m][g], ah, bq[g].x, bq[g].y);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, al, bq[g].x, bq[g].y);
+          mma_tf32(part, ah, bq[g].z, bq[g].w);
+          mma_tf32(part, ah, bq[g].x, bq[g].y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][g][e] += part[e];
         }
       }
     }

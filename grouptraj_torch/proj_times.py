@@ -33,9 +33,19 @@ csrc/lstm_wide_*.cu). Per shape it prints one JSON line:
 
 Run the versions in turns (A, B, B, A) in one session: cards differ, and
 a card below its power limit's maximum runs slower under load.
+
+With ``--compare`` (and ``--root OTHER``) nothing is timed: each kernel
+call runs once on this checkout's kernels and once on OTHER's, on the same
+inputs, and one JSON line a shape says of each output whether the two are
+bit-equal or how far apart they are (largest absolute difference):
+
+    python3 grouptraj_torch/proj_times.py --shapes wide --kernel K3 \
+        --root OTHER --compare
 """
 
 import argparse
+import functools
+import importlib
 import importlib.util
 import json
 import os
@@ -101,6 +111,48 @@ def k6_calls(cs, seed, shapes):
         yield name, lambda: lstm_proj_bwd(*bargs)
 
 
+def use_checkout(root):
+    """Import ``grouptraj_torch`` from the checkout at ``root`` from now on
+    (the modules imported so far are dropped; the kernel calls import
+    theirs when they run)."""
+    for name in list(sys.modules):
+        if name == "grouptraj_torch" or name.startswith("grouptraj_torch."):
+            del sys.modules[name]
+    sys.path.insert(0, root)
+    importlib.invalidate_caches()
+
+
+def outputs_of(calls):
+    """{shape: the call's outputs, None kept as None} for each call."""
+    return {name: tuple(None if t is None else t.clone() for t in run())
+            for name, run in calls}
+
+
+def compare(kernels, other):
+    """Each kernel's calls on this checkout and on ``other``, one JSON line
+    a shape: per output "equal" or the largest absolute difference."""
+    import torch
+    for kernel, make in kernels:
+        use_checkout(HERE)
+        mine = outputs_of(make())
+        use_checkout(other)
+        theirs = outputs_of(make())
+        torch.cuda.synchronize()
+        for name, outs in mine.items():
+            verdict = []
+            for x, y in zip(outs, theirs[name]):
+                if x is None or y is None:
+                    verdict.append(None if x is y else "given by one only")
+                elif torch.equal(x, y):
+                    verdict.append("equal")
+                else:
+                    verdict.append((x - y).abs().max().item())
+            print(json.dumps({"kernel": kernel, "shape": name,
+                              "outputs": verdict}))
+        del mine, theirs
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -110,6 +162,9 @@ def main():
     ap.add_argument("--shapes", choices=("main", "wide"), default="main",
                     help="chip_smoke's LSTM_MAIN / PROJ_MAIN, or WIDE_LSTM "
                          "/ WIDE_PROJ")
+    ap.add_argument("--compare", action="store_true",
+                    help="no timing: this checkout's outputs against "
+                         "--root's on the same inputs")
     ap.add_argument("--seed", type=int, default=None,
                     help="input seed (default: chip_smoke's, 7 for K3 and "
                          "K4 and 11 for K5 and K6)")
@@ -119,12 +174,9 @@ def main():
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
-    import grouptraj_torch
-    print(f"proj_times: timing {os.path.dirname(grouptraj_torch.__file__)}")
 
     lstm, proj = ((cs.LSTM_MAIN, cs.PROJ_MAIN) if args.shapes == "main"
                   else (cs.WIDE_LSTM, cs.WIDE_PROJ))
@@ -134,9 +186,20 @@ def main():
                                         ("K5", k5_calls, proj, 11),
                                         ("K6", k6_calls, proj, 11)):
         if args.kernel in (kernel, "all"):
-            kernels.append((kernel, calls(
-                cs, seed if args.seed is None else args.seed, shapes)))
-    for kernel, calls in kernels:
+            kernels.append((kernel, functools.partial(
+                calls, cs, seed if args.seed is None else args.seed,
+                shapes)))
+    if args.compare:
+        if root == HERE:
+            cs.fail("--compare needs --root OTHER")
+        print(f"proj_times: {HERE} against {root}")
+        compare(kernels, root)
+        return
+    use_checkout(root)
+    import grouptraj_torch
+    print(f"proj_times: timing {os.path.dirname(grouptraj_torch.__file__)}")
+    for kernel, make in kernels:
+        calls = make()
         for name, run in calls:
             ms = cs.time_ms(run)
             by_kernel = cs.device_ms_by_kernel(run)

@@ -25,8 +25,11 @@ setting launching only the bf16 mode; K3-K6 at widths past the register
 design's (H = 100 and 128, D = 32 and 64: csrc/lstm_wide_*.cu) and
 between its built widths (H = 40, D = 12: zero-padded) against their plain
 versions, and the wide design bit for bit on a repeat and on misaligned
-views.
-Marked
+views; the wide forward (K3, K5) at the edges of its tiling: B below one
+64-row block and not a multiple of 64, T = 1, H = 72 and 120 (9 and 15
+warps a block), H = 128 at D = 4 and 64 (the largest shared memory), and
+K5's wide forward and its plain version beside the same recurrence in
+float64. Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
@@ -545,6 +548,93 @@ def test_wide_kernels_repeat_bit_for_bit_and_take_misaligned_views(cuda):
     counts = [f.launches_wide - n for f, n in zip(
         (lstm_fused_fwd, lstm_fused_bwd, lstm_proj_fwd, lstm_proj_bwd), wide)]
     assert counts == [6, 6, 3, 3]
+
+
+# the wide forward's tiling edges: B below one 64-row block and not a
+# multiple of 64, T = 1, H = 72 and 120 (9 and 15 warps a block), and
+# H = 128 at D = 4 and 64 (the largest shared memory)
+@pytest.mark.parametrize("T,B,H,with_gx", [
+    (3, 1, 128, True), (4, 33, 128, False), (3, 8193, 128, True),
+    (1, 70, 128, True), (1, 33, 128, False), (5, 70, 72, True),
+    (4, 33, 72, False), (4, 100, 120, True), (3, 8193, 120, False)])
+def test_wide_forward_tiles_match_plain(cuda, T, B, H, with_gx):
+    """K3 in its wide design at the tiling's edges, with and without
+    residuals: the plain version's outputs within 1e-5, one wide launch a
+    call, and a repeat bit for bit."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_fwd, lstm_plan
+    from grouptraj_torch.ops.lstm import _fused_fwd_plain
+    assert lstm_plan(H).design == "wide"
+    w, h0, c0, gx, b, _ = _lstm_case(cuda, T, B, H, with_gx, seed=T + B + H)
+    for save in (False, True):
+        before = lstm_fused_fwd.launches_wide
+        out = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save)
+        again = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T, save=save)
+        assert lstm_fused_fwd.launches_wide == before + 2
+        ref = _fused_fwd_plain(w, gx, b, h0, c0, T, save)
+        torch.cuda.synchronize()
+        for x, y, z in zip(out, ref, again):
+            assert (x is None) == (y is None) == (z is None)
+            if x is not None:
+                assert bool(torch.isfinite(x).all())
+                assert (x - y).abs().max().item() <= 1e-5
+                assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("T,B,D,H", [
+    (4, 33, 4, 128), (3, 65, 64, 128), (2, 1, 64, 128), (1, 8193, 64, 128),
+    (3, 33, 32, 72), (3, 65, 36, 120), (2, 8193, 4, 120)])
+def test_wide_proj_forward_tiles_match_plain(cuda, T, B, D, H):
+    """K5 in its wide design at the tiling's edges, with and without
+    residuals: the plain version's outputs within 1e-5, one wide launch a
+    call, and a repeat bit for bit."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_plan
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import lstm_proj_fwd_plain
+    assert lstm_plan(H, D).design == "wide"
+    w_ih, w_hh, b, xs, h0, c0, _ = _proj_case(cuda, T, B, D, H,
+                                              seed=T + B + D + H)
+    for save in (False, True):
+        before = lstm_proj_fwd.launches_wide
+        out = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=save)
+        again = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=save)
+        assert lstm_proj_fwd.launches_wide == before + 2
+        ref = lstm_proj_fwd_plain(w_ih, w_hh, b, xs, h0, c0, save)
+        torch.cuda.synchronize()
+        for x, y, z in zip(out, ref, again):
+            assert (x is None) == (y is None) == (z is None)
+            if x is not None:
+                assert bool(torch.isfinite(x).all())
+                assert (x - y).abs().max().item() <= 1e-5
+                assert torch.equal(x, z)
+
+
+def test_wide_proj_forward_beside_float64(cuda):
+    """K5's wide forward and its plain version (float32) against the same
+    recurrence in float64 on the same inputs, at the widest K5 case's
+    largest-B edge (T = 1, B = 8,193, D = 64, H = 128; gate sums of std
+    about 2.9). Prints each output's largest error of both and their
+    largest difference; holds both to the file's 1e-5 against the exact
+    answer (the tests above hold the kernel to 1e-5 of another float32
+    answer, whose rounding adds to the gap). One tensor-core accumulator
+    over all 192 products of a gate sum put the kernel 3-4x further from
+    the exact answer than float32 (the tensor cores truncate as they
+    accumulate); each k-step's products are now summed from zero."""
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import lstm_proj_fwd_plain
+    T, B, D, H = 1, 8193, 64, 128
+    args = _proj_case(cuda, T, B, D, H, seed=T + B + D + H)[:6]
+    out = lstm_proj_fwd(*args, save=True)
+    ref = lstm_proj_fwd_plain(*args, save=True)
+    exact = lstm_proj_fwd_plain(*(a.double() for a in args), save=True)
+    torch.cuda.synchronize()
+    names = ("ys", "hT", "cT", "gates", "cs")
+    for name, x, y, e in zip(names, out, ref, exact):
+        ek = (x.double() - e).abs().max().item()
+        ep = (y.double() - e).abs().max().item()
+        ekp = (x - y).abs().max().item()
+        print(f"float64 witness: {name} kernel {ek:.4g} plain {ep:.4g} "
+              f"kernel-plain {ekp:.4g}")
+        assert ek <= 1e-5 and ep <= 1e-5, (name, ek, ep)
 
 
 def test_pallas_training_iteration_matches_scan(cuda):
