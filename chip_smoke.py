@@ -260,14 +260,17 @@ def kernel_name(line):
     ``lstm_proj_fwd_kernel<16,48,1>`` (D, H, SAVE) or
     ``lstm_proj_bwd_kernel<16,48>``, ``lstm_wide_fwd_kernel<2,1>`` (mode:
     0 K3 gx, 1 K3 decoder, 2 K5; SAVE), ``lstm_wide_bwd_kernel``,
-    ``lstm_wide_dw_kernel``, ``lstm_wide_dx_kernel`` or the wide design's
-    ``split_fwd_kernel`` / ``split_bwd_kernel`` from a line that names a
+    ``lstm_wide_dw_kernel<32>`` (x's columns), ``lstm_wide_dx_kernel`` or
+    the wide design's ``split_fwd_kernel`` / ``split_bwd_kernel`` from a
+    line that names a
     pool kernel's, K3's, K4's, K5's or K6's mangled symbol (ptxas or
     cuobjdump; the base name alone from a profiler's demangled one); None
     for other kernels."""
     m = re.search(r"(lstm_wide_fwd_kernel)(?:ILi(\d+)ELb([01])E)?", line)
     if m is None:
-        m = re.search(r"(lstm_wide_(?:bwd|dw|dx)_kernel|split_(?:fwd|bwd)"
+        m = re.search(r"(lstm_wide_dw_kernel)(?:ILi(\d+)EE)?", line)
+    if m is None:
+        m = re.search(r"(lstm_wide_(?:bwd|dx)_kernel|split_(?:fwd|bwd)"
                       r"_kernel)", line)
     if m is None:
         m = re.search(
@@ -292,7 +295,9 @@ def kernel_name(line):
 
 
 # libraries whose SASS sass_hmma reads, and the kernels among them that
-# must run on the tensor cores: K1's tile, K2's ties pass, K3-K6
+# must run on the tensor cores (mma.sync, HMMA, or wgmma, HGMMA): K1's
+# tile, K2's ties pass, K3-K6; the wide backward's recurrence and weight
+# gradients run theirs on wgmma
 HMMA_LIBS = ("pool_core_fwd", "pool_core_bwd", "lstm_fused_fwd",
              "lstm_fused_bwd", "lstm_proj_fwd", "lstm_proj_bwd",
              "lstm_wide_fwd", "lstm_wide_bwd")
@@ -301,24 +306,27 @@ HMMA_KERNELS = ("pool_core_fwd_kernel", "ties_kernel",
                 "lstm_proj_fwd_kernel", "lstm_proj_bwd_kernel",
                 "lstm_wide_fwd_kernel", "lstm_wide_bwd_kernel",
                 "lstm_wide_dw_kernel", "lstm_wide_dx_kernel")
+WGMMA_KERNELS = ("lstm_wide_bwd_kernel", "lstm_wide_dw_kernel")
 # K1's and K2's pair tiles, each instantiated in both modes
 BF16_TILES = ("pool_core_fwd_kernel", "ties_kernel")
 
 
 def sass_hmma(libs):
-    """The count of HMMA (tensor-core mma) instructions in each kernel of
-    the pool libraries', K3's, K4's, K5's and K6's SASS, by cuobjdump
-    beside nvcc; fails if K1's or K2's tile kernel or any instance of K3,
-    K4, K5 or K6 has none, or if a bf16-mode instance of K1's or K2's tile
-    (last template argument 1) has no bfloat16 HMMA (HMMA.16816.F32.BF16)
-    or an exact-mode one has any. -> (HMMA counts, bf16 HMMA counts of the
-    pool tiles); (None, None) where the toolkit has no cuobjdump."""
+    """The count of tensor-core instructions (HMMA: mma.sync; HGMMA:
+    wgmma) in each kernel of the pool libraries', K3's, K4's, K5's and
+    K6's SASS, by cuobjdump beside nvcc; fails if K1's or K2's tile kernel
+    or any instance of K3, K4, K5 or K6 has none, if an instance of a
+    WGMMA_KERNELS kernel has no HGMMA, or if a bf16-mode instance of K1's
+    or K2's tile (last template argument 1) has no bfloat16 HMMA
+    (HMMA.16816.F32.BF16) or an exact-mode one has any. -> (tensor-core
+    instruction counts, bf16 HMMA counts of the pool tiles); (None, None)
+    where the toolkit has no cuobjdump."""
     from grouptraj_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"sass: no cuobjdump at {tool}; HMMA count not taken")
         return None, None
-    counts, bf16 = {}, {}
+    counts, bf16, gmma = {}, {}, {}
     for lib in HMMA_LIBS:
         sass = subprocess.run([tool, "-sass", str(libs[lib])],
                               capture_output=True, text=True, timeout=120,
@@ -328,20 +336,28 @@ def sass_hmma(libs):
             if "Function :" in line:
                 fn = kernel_name(line)
                 if fn is not None:
-                    counts[fn] = 0
+                    counts[fn] = gmma[fn] = 0
                     if fn.startswith(BF16_TILES):
                         bf16[fn] = 0
-            elif fn is not None and "HMMA" in line:
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
                 counts[fn] += 1
+                gmma[fn] += "HGMMA" in line
                 if fn in bf16 and "HMMA.16816.F32.BF16" in line:
                     bf16[fn] += 1
-    print("sass HMMA: " + " ".join(f"{f}={c}" for f, c in counts.items()))
+    print("sass HMMA + HGMMA: " + " ".join(f"{f}={c}"
+                                           for f, c in counts.items()))
+    print("sass HGMMA (wgmma): " + " ".join(f"{f}={c}"
+                                            for f, c in gmma.items() if c))
     print("sass bf16 HMMA (HMMA.16816.F32.BF16): "
           + " ".join(f"{f}={c}" for f, c in bf16.items()))
     for kernel in HMMA_KERNELS:
         tiles = [c for f, c in counts.items() if f.startswith(kernel)]
         if not tiles or min(tiles) == 0:
-            fail(f"{kernel} runs no tensor-core instruction (HMMA)")
+            fail(f"{kernel} runs no tensor-core instruction (HMMA, HGMMA)")
+    for kernel in WGMMA_KERNELS:
+        tiles = [c for f, c in gmma.items() if f.startswith(kernel)]
+        if not tiles or min(tiles) == 0:
+            fail(f"{kernel} runs no wgmma (HGMMA)")
     modes = {f.rstrip(">").split(",")[-1] for f in bf16}
     if modes != {"0", "1"}:
         fail(f"the pool tiles' instances are not of both modes: {sorted(bf16)}")
@@ -4062,6 +4078,42 @@ WIDE_PER_CALL = {"fused": {"lstm_fused_fwd_wide": 2},
 # the wide backward's kernels (K4's and K6's): recurrence, dW, dxs
 WIDE_BWD_KERNELS = ("lstm_wide_bwd_kernel", "lstm_wide_dw_kernel",
                     "lstm_wide_dx_kernel")
+WIDE_BWD_PARTS = dict(zip(("recurrence", "dW", "dxs"), WIDE_BWD_KERNELS))
+
+
+def wide_bwd_parts(label, run, T, B, D, H, cot):
+    """The wide backward's parts by device time (torch.profiler, a call of
+    ``run``), each beside its own bound: the recurrence reads the gates,
+    c_{t-1} and the cotangents given (``cot``: dys, dhT, dcT) and writes dz,
+    dh0 and dc0, with the product dz W_hhᵀ (3xTF32) and the gate math; the
+    dW pass reads dz and [x | h_{t-1}] and writes dW (Pᵀ dz); dxs (D > 0)
+    reads dz and W_ih and writes dxs (dz W_ihᵀ). -> {part: {ms, bound_ms,
+    bound_by, ...}}."""
+    by_kernel = device_ms_by_kernel(run)
+    tb, G = T * B, 4 * H
+    floats = {
+        "recurrence": (tb * (G + H + G) + B * H * (1 + 2)
+                       + (tb * H if cot[0] else 0) + (cot[1] + cot[2]) * B * H),
+        "dW": tb * G + tb * (D + H) + (D + H + 1) * G,
+        "dxs": tb * G + D * G + tb * D}
+    products = {"recurrence": 2 * tb * H * G, "dW": 2 * tb * (D + H) * G,
+                "dxs": 2 * tb * G * D}
+    gate_ops = {"recurrence": LSTM_GATE_OPS["bwd"] * tb * H, "dW": 0,
+                "dxs": 0}
+    parts = {}
+    for part, kernel in WIDE_BWD_PARTS.items():
+        if part == "dxs" and D == 0:
+            continue
+        ms = sum(v for k, v in by_kernel.items()
+                 if (kernel_name(k) or "").startswith(kernel))
+        if ms == 0:
+            fail(f"{label}: no {kernel} in the backward's profile")
+        parts[part] = dict(ms=ms, **_unit_bounds(
+            products[part], gate_ops[part], 4 * floats[part] / HBM_BW * 1e3))
+    print(f"{label} parts: " + "; ".join(
+        f"{p} {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ({e['bound_by']}), "
+        f"{e['ms'] / e['bound_ms']:.2f}x" for p, e in parts.items()))
+    return parts
 
 
 def wide_counts():
@@ -4116,9 +4168,12 @@ def _wide_lstm_case(name, gen, T, B, H, with_gx, save, cot, timed):
     if save:
         ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
                                              save=True)
-        _repeats(f"wide K4 {name}", lstm_fused_bwd,
-                 (w, h0, c0, ys, gates, cs, *given, with_gx),
-                 (1, 2, 3, 4, 5, 6))
+        args = (w, h0, c0, ys, gates, cs, *given, with_gx)
+        _repeats(f"wide K4 {name}", lstm_fused_bwd, args, (1, 2, 3, 4, 5, 6))
+        if timed is not None:
+            timed[name]["bwd"]["parts"] = wide_bwd_parts(
+                f"wide K4 {name}", lambda: lstm_fused_bwd(*args), T, B, 0, H,
+                [g is not None for g in given])
     return errs
 
 
@@ -4135,9 +4190,12 @@ def _wide_proj_case(name, gen, T, B, D, H, save, cot, timed):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     given = [r(T, B, H) if cot[0] else None, r(B, H) if cot[1] else None,
              r(B, H) if cot[2] else None]
-    _repeats(f"wide K6 {name}", lstm_proj_bwd,
-             (w_ih, w_hh, xs, h0, c0, ys, gates, cs, *given),
-             (2, 3, 4, 5, 6, 7, 8))
+    args = (w_ih, w_hh, xs, h0, c0, ys, gates, cs, *given)
+    _repeats(f"wide K6 {name}", lstm_proj_bwd, args, (2, 3, 4, 5, 6, 7, 8))
+    if timed is not None and save:
+        timed[name]["bwd"]["parts"] = wide_bwd_parts(
+            f"wide K6 {name}", lambda: lstm_proj_bwd(*args), T, B, D, H,
+            [g is not None for g in given])
     return errs
 
 

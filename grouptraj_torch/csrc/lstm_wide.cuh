@@ -9,16 +9,17 @@
 // [128, 512] is 256 KB in float32 and 512 KB as its 3xTF32 hi/lo pair:
 // more than the 227 KB of shared memory a block may use, and 2H = 256
 // registers a lane. So here W (and, backward, Wᵀ) is split once per call
-// by a small kernel into a global scratch, in the order the mma.sync
-// m16n8k8 B fragments are read (one float4 {hi, hi, lo, lo} a lane and
-// fragment, 512 contiguous bytes a warp), and every warp streams its own
-// fragments from L2 at every step. A block owns many batch rows (64
-// forward, 32 backward) so that each fragment read from L2 feeds several
-// m-tiles. The weight gradients leave the recurrence: the backward writes
-// dz [T, B, 4H] (dgx itself, or a scratch slab) and two hand-written
-// 3xTF32 kernels form dW = Σ [x | h_{t-1} | 1]ᵀ dz (split-K over row
-// chunks, partial sums added in chunk order) and dxs = dz W_ihᵀ. No float
-// atomics anywhere: every result repeats bit for bit.
+// by a small kernel into a global scratch and streamed from L2 at every
+// step. The forward reads it in the order of the mma.sync m16n8k8 B
+// fragments (one float4 {hi, hi, lo, lo} a lane and fragment, 512
+// contiguous bytes a warp), every warp its own, 64 batch rows a block. The
+// backward reads it as wgmma B tiles, k-chunk by k-chunk, by bulk copy
+// into a shared-memory ring that feeds 64 or 128 rows (lstm_wide_bwd.cu).
+// The weight gradients leave the recurrence: the backward writes dz [T, B,
+// 4H] (dgx itself, or a scratch slab) and a second pass forms dW = Σ [x |
+// h_{t-1} | 1]ᵀ dz (split-K over row chunks, partial sums added in chunk
+// order) and dxs = dz W_ihᵀ. No float atomics anywhere: every result
+// repeats bit for bit.
 
 #pragma once
 
@@ -68,17 +69,6 @@ __global__ void split_fwd_kernel(const float* __restrict__ w_ih,
                   : w_hh[(size_t)(k - Dp) * G + n];
   };
   wf[idx] = split2(at(k0), at(k0 + 1));
-}
-
-// Backward: B[k][n] = W_hh[n][k] (k over 4H, n over H): dh = dz W_hhᵀ.
-__global__ void split_bwd_kernel(const float* __restrict__ w_hh, int H,
-                                 float4* __restrict__ wf) {
-  const int G = 4 * H, NT = H / 8, KS = G / 8;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= KS * NT * 32) return;
-  const int lane = idx & 31, nt = (idx >> 5) % NT, ks = (idx >> 5) / NT;
-  const int n = 8 * nt + (lane >> 2), k0 = 8 * ks + 2 * (lane & 3);
-  wf[idx] = split2(w_hh[(size_t)n * G + k0], w_hh[(size_t)n * G + k0 + 1]);
 }
 
 // the widths the wide kernels take: H a multiple of 8 in [8, 128], D a

@@ -152,6 +152,8 @@ def _wide_bwd_lib() -> ctypes.CDLL:
     lib.lstm_wide_bwd.restype = ctypes.c_int
     lib.lstm_wide_bwd_chunks.argtypes = [i] * 5
     lib.lstm_wide_bwd_chunks.restype = ctypes.c_int
+    lib.lstm_wide_bwd_wf_floats.argtypes = []
+    lib.lstm_wide_bwd_wf_floats.restype = ctypes.c_int
     lib.lstm_wide_bwd_error_string.argtypes = [i]
     lib.lstm_wide_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -202,7 +204,8 @@ def wide_bwd(w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT, dz,
                                      device=w_hh.device)
     kc = _round_up(D, 8) + H + (8 if with_db else 0)
     nch = lib.lstm_wide_bwd_chunks(T, B, D, H, int(with_db))
-    wf, part, dw = new(8 * H * H), new(nch, kc, 4 * H), new(kc, 4 * H)
+    wf = new(lib.lstm_wide_bwd_wf_floats())     # W_hhᵀ's split tiles
+    part, dw = new(nch, kc, 4 * H), new(kc, 4 * H)
     dxs = new(T, B, D) if D else None
     dh0, dc0 = new(B, H), new(B, H)
     err = lib.lstm_wide_bwd(

@@ -34,6 +34,16 @@ csrc/lstm_wide_*.cu). Per shape it prints one JSON line:
 Run the versions in turns (A, B, B, A) in one session: cards differ, and
 a card below its power limit's maximum runs slower under load.
 
+With ``--iteration fused`` (or ``pallas``) it times instead the JAX
+package's H=128 scale configuration's training iteration on that route
+(chip_smoke.py's wide phase: ``WIDE_MODEL``, S=64, N=128, batch 64,
+best_k 20, float32 no-grad legs, seeded weights): one JSON line with the
+wall ms an iteration (median of 5 synchronised runs of 3 iterations) and
+torch.profiler's device ms an iteration by kernel over 3 iterations. Run
+the checkouts in turns here too:
+
+    python3 grouptraj_torch/proj_times.py --iteration fused --root OTHER
+
 With ``--compare`` (and ``--root OTHER``) nothing is timed: each kernel
 call runs once on this checkout's kernels and once on OTHER's, on the same
 inputs, and one JSON line a shape says of each output whether the two are
@@ -111,6 +121,50 @@ def k6_calls(cs, seed, shapes):
         yield name, lambda: lstm_proj_bwd(*bargs)
 
 
+def iteration_times(cs, impl):
+    """The scale configuration's training iteration on route ``impl``,
+    from one seeded state (chip_smoke's wide phase): wall ms an iteration
+    and device ms an iteration by kernel."""
+    import copy
+    import dataclasses
+    import statistics
+    import time
+    import torch
+    from grouptraj_torch.config import ModelConfig, TrainConfig
+    from grouptraj_torch.train.device_data import (
+        gather_batch, synthetic_device_data,
+    )
+    from grouptraj_torch.train.steps import (
+        train_iterations, train_state_from_modules,
+    )
+    cfg = dataclasses.replace(ModelConfig(), **cs.WIDE_MODEL)
+    tcfg = dataclasses.replace(TrainConfig(), bf16_nograd=False)
+    data = synthetic_device_data(256, cs.WIDE_N, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    idx = torch.randint(0, 256, (cs.WIDE_ITERS, 2, tcfg.batch_size),
+                        generator=gen, device="cuda")
+    batch = gather_batch(data, idx[0, 0], cfg.obs_len)
+    state, _, _ = cs.alive_state(cfg, tcfg, batch, gen)
+
+    def run():
+        st = train_state_from_modules(copy.deepcopy(state.g),
+                                      copy.deepcopy(state.d), tcfg)
+        g = torch.Generator(device="cuda").manual_seed(31)
+        train_iterations(st, data, idx, cfg, tcfg, g, impl=impl)
+
+    run()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / cs.WIDE_ITERS)
+    by_kernel = cs.device_ms_by_kernel(run, reps=1)
+    return statistics.median(walls), {
+        k: v / cs.WIDE_ITERS for k, v in by_kernel.items()}
+
+
 def use_checkout(root):
     """Import ``grouptraj_torch`` from the checkout at ``root`` from now on
     (the modules imported so far are dropped; the kernel calls import
@@ -162,6 +216,9 @@ def main():
     ap.add_argument("--shapes", choices=("main", "wide"), default="main",
                     help="chip_smoke's LSTM_MAIN / PROJ_MAIN, or WIDE_LSTM "
                          "/ WIDE_PROJ")
+    ap.add_argument("--iteration", choices=("fused", "pallas"),
+                    help="time the scale configuration's training "
+                         "iteration on this route instead")
     ap.add_argument("--compare", action="store_true",
                     help="no timing: this checkout's outputs against "
                          "--root's on the same inputs")
@@ -178,6 +235,18 @@ def main():
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
 
+    if args.iteration:
+        use_checkout(root)
+        import grouptraj_torch
+        wall, by_kernel = iteration_times(cs, args.iteration)
+        wide = {k[:60]: v for k, v in by_kernel.items()
+                if "lstm_wide" in k or "split_" in k or "reduce_part" in k}
+        print(json.dumps({"route": args.iteration,
+                          "root": os.path.dirname(grouptraj_torch.__file__),
+                          "wall_ms": wall,
+                          "device_ms": sum(by_kernel.values()),
+                          "wide_kernels_ms": wide}))
+        return
     lstm, proj = ((cs.LSTM_MAIN, cs.PROJ_MAIN) if args.shapes == "main"
                   else (cs.WIDE_LSTM, cs.WIDE_PROJ))
     kernels = []

@@ -29,7 +29,11 @@ views; the wide forward (K3, K5) at the edges of its tiling: B below one
 64-row block and not a multiple of 64, T = 1, H = 72 and 120 (9 and 15
 warps a block), H = 128 at D = 4 and 64 (the largest shared memory), and
 K5's wide forward and its plain version beside the same recurrence in
-float64. Marked
+float64; the wide backward (K4 in both variants, K6) at the edges of its
+tiling (B of 1, 33, one less and one more than a 64- and a 128-row tile,
+8,193 and past 8,448; T = 1; H = 72, 120 and 128; D = 4, 32 and 64) with
+all cotangents and with one on hT only, and beside the same
+back-propagation in float64. Marked
 ``cuda``; each test skips without a CUDA device.
 This file imports no JAX, so on a machine without it run
 
@@ -635,6 +639,121 @@ def test_wide_proj_forward_beside_float64(cuda):
         print(f"float64 witness: {name} kernel {ek:.4g} plain {ep:.4g} "
               f"kernel-plain {ekp:.4g}")
         assert ek <= 1e-5 and ep <= 1e-5, (name, ek, ep)
+
+
+# the wide backward's tiling edges: B of one row, 33, one less and one more
+# than a 64- and a 128-row tile, 8,193 and past 8,448 (two warpgroups of
+# 64 rows a block), T = 1, H = 72, 120 and 128, both K4 variants
+@pytest.mark.parametrize("T,B,H,with_gx", [
+    (3, 1, 128, True), (2, 33, 128, False), (1, 63, 128, True),
+    (2, 65, 72, False), (3, 127, 120, True), (1, 129, 128, False),
+    (2, 8193, 128, True), (1, 8193, 120, False), (1, 8575, 128, True),
+    (2, 8577, 72, False)])
+def test_wide_backward_tiles_match_plain(cuda, T, B, H, with_gx):
+    """K4 in its wide design at the tiling's edges, with all cotangents and
+    with one on hT only: the plain version's gradients within 1e-4 of each
+    tensor's largest entry, one wide launch a call, and a repeat bit for
+    bit."""
+    from grouptraj_torch.ops.cuda_lstm import (
+        lstm_fused_bwd, lstm_fused_fwd, lstm_plan,
+    )
+    from grouptraj_torch.ops.lstm import fused_recurrence_bwd_plain
+    assert lstm_plan(H).design == "wide"
+    w, h0, c0, gx, b, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H, with_gx,
+                                                   seed=T + B + H)
+    ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
+                                         save=True)
+    for cot in ((dys, dhT, dcT), (None, dhT, None)):
+        args = (w, h0, c0, ys, gates, cs, *cot, with_gx)
+        before = lstm_fused_bwd.launches_wide
+        got, again = lstm_fused_bwd(*args), lstm_fused_bwd(*args)
+        assert lstm_fused_bwd.launches_wide == before + 2
+        ref = fused_recurrence_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, ref, again):
+            assert (x is None) == (y is None) == (z is None)
+            if x is not None:
+                assert bool(torch.isfinite(x).all())
+                assert (x - y).abs().max().item() <= 1e-4 * max(
+                    y.abs().max().item(), 1e-30)
+                assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("T,B,D,H", [
+    (3, 1, 4, 128), (2, 33, 32, 128), (1, 63, 64, 128), (2, 65, 4, 72),
+    (3, 127, 32, 120), (1, 129, 64, 128), (2, 8193, 32, 128),
+    (1, 8193, 64, 120), (1, 8575, 4, 128), (2, 8577, 64, 72)])
+def test_wide_proj_backward_tiles_match_plain(cuda, T, B, D, H):
+    """K6 in its wide design at the tiling's edges, with all cotangents and
+    with one on hT only: the plain version's gradients within 1e-4 of each
+    tensor's largest entry, one wide launch a call, and a repeat bit for
+    bit."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_plan
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import lstm_proj_bwd_plain
+    assert lstm_plan(H, D).design == "wide"
+    w_ih, w_hh, b, xs, h0, c0, (dys, dhT, dcT) = _proj_case(
+        cuda, T, B, D, H, seed=T + B + D + H)
+    ys, _, _, gates, cs = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+    for cot in ((dys, dhT, dcT), (None, dhT, None)):
+        args = (w_ih, w_hh, xs, h0, c0, ys, gates, cs, *cot)
+        before = lstm_proj_bwd.launches_wide
+        got, again = lstm_proj_bwd(*args), lstm_proj_bwd(*args)
+        assert lstm_proj_bwd.launches_wide == before + 2
+        ref = lstm_proj_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, ref, again):
+            assert x.shape == y.shape and bool(torch.isfinite(x).all())
+            assert (x - y).abs().max().item() <= 1e-4 * max(
+                y.abs().max().item(), 1e-30)
+            assert torch.equal(x, z)
+
+
+def test_wide_backward_beside_float64(cuda):
+    """The wide backward (K4 in both variants, K6 at D = 64) and its plain
+    versions (float32) against the same back-propagation in float64 on the
+    same inputs (the float32 forward's residuals, upcast), at H = 128 and a
+    B that crosses the row tiles (T = 4, B = 4,097). Prints each
+    gradient's largest error of both, relative to the tensor's largest
+    entry, and holds both to the file's 1e-5 of that entry. A backward sum
+    of 4H = 512 products in one tensor-core accumulator truncates as it
+    goes; each chunk of the sum starts from zero."""
+    from grouptraj_torch.ops.cuda_lstm import lstm_fused_bwd, lstm_fused_fwd
+    from grouptraj_torch.ops.cuda_lstm_proj import lstm_proj_bwd, lstm_proj_fwd
+    from grouptraj_torch.ops.lstm import (
+        fused_recurrence_bwd_plain, lstm_proj_bwd_plain,
+    )
+    T, B, D, H = 4, 4097, 64, 128
+    cases = []
+    for with_gx in (True, False):
+        w, h0, c0, gx, b, (dys, dhT, dcT) = _lstm_case(cuda, T, B, H,
+                                                       with_gx, seed=T + B)
+        ys, _, _, gates, cs = lstm_fused_fwd(w, h0, c0, gx=gx, b=b, T=T,
+                                             save=True)
+        cases.append((f"K4 {'gx' if with_gx else 'decoder'}", lstm_fused_bwd,
+                      fused_recurrence_bwd_plain,
+                      (w, h0, c0, ys, gates, cs, dys, dhT, dcT), (with_gx,),
+                      ("dgx", "dw", "db", "dh0", "dc0")))
+    w_ih, w_hh, b, xs, h0, c0, (dys, dhT, dcT) = _proj_case(
+        cuda, T, B, D, H, seed=T + B + D)
+    ys, _, _, gates, cs = lstm_proj_fwd(w_ih, w_hh, b, xs, h0, c0, save=True)
+    cases.append(("K6", lstm_proj_bwd, lstm_proj_bwd_plain,
+                  (w_ih, w_hh, xs, h0, c0, ys, gates, cs, dys, dhT, dcT), (),
+                  ("dxs", "dw_ih", "dw_hh", "db", "dh0", "dc0")))
+    for what, kernel, plain, args, flags, names in cases:
+        out = kernel(*args, *flags)
+        ref = plain(*args, *flags)
+        exact = plain(*(a.double() for a in args), *flags)
+        torch.cuda.synchronize()
+        for name, x, y, e in zip(names, out, ref, exact):
+            if e is None:
+                continue
+            top = e.abs().max().item()
+            ek = (x.double() - e).abs().max().item() / top
+            ep = (y.double() - e).abs().max().item() / top
+            print(f"float64 witness: {what} {name} kernel {ek:.4g} plain "
+                  f"{ep:.4g} (of the largest entry, {top:.4g})")
+            assert ek <= 1e-5 and ep <= 1e-5, (what, name, ek, ep)
 
 
 def test_pallas_training_iteration_matches_scan(cuda):
